@@ -1,0 +1,509 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # build, check every kernel, serve
+
+Phases, each raising on its first fault (the script then exits non-zero):
+  1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
+  2. build   — every CUDA source under src/repro_torch/csrc built at once
+               with nvcc for sm_90a; the ptxas register/spill lines;
+  3. kernels — each hand-written kernel against its plain PyTorch version on
+               the same inputs at the serving path's shapes, with its time
+               (CUDA events), its bound and a library call's time;
+  4. serve   — full-width carboncall-qwen2-7b (random weights from a seed,
+               quantized on the card leaf by leaf) served by the paged engine:
+               8 temperature-0 requests, half sharing a 32-token prefix, a
+               Q8 -> Q4 hot swap halfway, then the same requests on an int8-KV
+               engine. Each engine's run is a main path of its own: the
+               launch counters are set to 0 just before it and read just
+               after, and every kernel that path runs must have launched; no
+               step may fall back, and the invariant sweep must be clean.
+The line before the last is the `kernels` JSON record; the last line is
+{"ok": true, "device": {...}}. Without a card, or run from a directory that
+holds no `src/repro_torch`, it prints no result and exits 2.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
+BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+QM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
+             (3584, 152064)]    # (K, N): wq/wo, wk/wv, wg/wu, down, lm_head
+QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
+# max |err| of the attention outputs (bf16). Paged rows average 129-256
+# positions, so |out| is ~0.1 and one bf16 ulp there is ~5e-4; int8 pools
+# add the codes' rounding, which the plain version shares but applies in
+# another order. Flash rows at the start of a prompt average few positions,
+# so |out| reaches ~3, where one ulp is 0.016.
+PAGED_BF16_TOL = 1e-3
+PAGED_INT8_TOL = 1e-2
+FLASH_TOL = 0.03
+REPLACES = {
+    "q8_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:56",
+    "q4_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:108",
+    "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:138",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:93",
+}
+SOURCES = {
+    "q8_matmul": "src/repro_torch/csrc/quant_matmul.cu",
+    "q4_matmul": "src/repro_torch/csrc/quant_matmul.cu",
+    "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+}
+
+
+def fail(msg: str, code: int = 1):
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(code)
+
+
+def log(msg: str):
+    print(msg, flush=True)
+
+
+def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Mean device time of `fn` over `iters` launches, by CUDA events."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float, peak_flops: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# 1-2. device and build
+# ---------------------------------------------------------------------------
+
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    if smi.returncode != 0:
+        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    log(smi.stdout.strip().splitlines()[0])     # name, power limit
+    cap = torch.cuda.get_device_capability(0)
+    log(f"capability: {cap}, torch {torch.__version__}, "
+        f"cuda {torch.version.cuda}, count {torch.cuda.device_count()}")
+    if cap != (9, 0):
+        fail(f"need a Hopper card (capability 9.0), got {cap}")
+
+
+def phase_build():
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    reports = build.build_all()
+    log(f"build: {len(reports)} sources built in "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    for name, rep in sorted(reports.items()):
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                log(f"  ptxas[{name}]: {line.strip()}")
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+class KernelRecord:
+    def __init__(self, name):
+        self.name = name
+        self.max_abs_err = 0.0
+        self.ms = self.plain_ms = self.bound_ms = 0.0
+        self.library_ms = None
+        self.bound_by = "bytes"
+
+    def to_json(self, launches):
+        return {"name": self.name, "route": "cuda",
+                "source": SOURCES[self.name], "replaces": REPLACES[self.name],
+                "launches": launches, "max_abs_err": self.max_abs_err,
+                "ms": self.ms, "plain_ms": self.plain_ms,
+                "bound_ms": self.bound_ms, "bound_by": self.bound_by,
+                "library_ms": self.library_ms}
+
+
+def check_quant_matmul(records, timed_m: int):
+    """q8 and q4 at the five (K, N) of the full-width model, for M = 4 (the
+    serving run's decode rows), 8 and 512 (prefill rows). The kernels line
+    reports the M = `timed_m` sums over the five shapes."""
+    import torch
+    from repro_torch.kernels.quant_matmul import ops as qm
+    from repro_torch.quant.qtensor import dequantize, quantize
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for fmt in ("q8", "q4"):
+        rec = records[f"{fmt}_matmul"]
+        for K, N in QM_SHAPES:
+            w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
+            t = quantize(w.to(torch.bfloat16), fmt)
+            del w
+            wdq = dequantize(t, torch.bfloat16)
+            for M in (4, 8, 512):
+                x = torch.randn((M, K), generator=g, device="cuda").to(
+                    torch.bfloat16)
+                got = qm.launch(x, t)
+                want = qm.plain(x, t)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                rel = err / max(want.float().abs().max().item(), 1e-6)
+                ok = bool(torch.isfinite(got).all().item()) and rel < QM_TOL
+                ms = time_ms(lambda: qm.launch(x, t))
+                pms = time_ms(lambda: qm.plain(x, t), iters=3, warmup=1)
+                lms = time_ms(lambda: torch.matmul(x, wdq))
+                qbytes = t.nbytes()
+                nbytes = M * K * 2 + qbytes + M * N * 2
+                b, by = bound_ms(nbytes, 2.0 * M * K * N, BF16_FLOPS)
+                log(f"  {fmt}_matmul M={M} K={K} N={N}: rel_err={rel:.2e} "
+                    f"ms={ms:.4f} plain_ms={pms:.4f} matmul_bf16_ms={lms:.4f} "
+                    f"bound_ms={b:.4f} ({by}) "
+                    f"{'ok' if ok else 'MISMATCH'}")
+                if not ok:
+                    fail(f"{fmt}_matmul M={M} K={K} N={N} rel err {rel}")
+                rec.max_abs_err = max(rec.max_abs_err, err)
+                if M == timed_m:
+                    rec.ms += ms
+                    rec.plain_ms += pms
+                    rec.library_ms = (rec.library_ms or 0.0) + lms
+                    rec.bound_ms += b
+                    rec.bound_by = by
+            del t, wdq
+            torch.cuda.empty_cache()
+
+
+def _paged_inputs(g, B, K, G, H, bs, nb, lengths, int8):
+    import torch
+    num_blocks = B * nb + 1
+    q = torch.randn((B, K, G, H), generator=g, device="cuda").to(torch.bfloat16)
+    kf = torch.randn((num_blocks, bs, K, H), generator=g, device="cuda")
+    vf = torch.randn((num_blocks, bs, K, H), generator=g, device="cuda")
+    perm = torch.randperm(num_blocks - 1, generator=g, device="cuda") + 1
+    bt = torch.zeros((B, nb), dtype=torch.int32, device="cuda")
+    for b, ln in enumerate(lengths):
+        used = -(-ln // bs)
+        bt[b, :used] = perm[b * nb:b * nb + used].to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    if int8:
+        from repro_torch.models.transformer import requant_cache
+        enc = requant_cache({"k_scale": True}, kf, vf)
+        return q, enc["k"], enc["v"], enc["k_scale"], enc["v_scale"], bt, lens
+    return q, kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None, bt, lens
+
+
+def check_paged(records):
+    """bf16 and int8 pools at full-width heads (K=4, G=7, H=128), bs=16 and
+    a 16-block chain (two splits): lengths that cross the split boundary, a
+    dead row parked on scratch block 0 (length 1), and a sliding window."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa
+    rec = records["paged_attention"]
+    g = torch.Generator(device="cuda").manual_seed(2)
+    B, K, G, H, bs, nb = 4, 4, 7, 128, 16, 16
+    lengths = [1, 129, 200, 256]
+    for int8 in (False, True):
+        q, kp, vp, ks, vs, bt, lens = _paged_inputs(g, B, K, G, H, bs, nb,
+                                                    lengths, int8)
+        bt[0] = 0                               # dead row on scratch block 0
+        for window in (0, 48):
+            splits = pa.default_num_splits(nb)
+            run = lambda: pa.launch(q, kp, vp, bt, lens, k_scale=ks,  # noqa: E731
+                                    v_scale=vs, window=window,
+                                    num_splits=splits)
+            plain = lambda: pa.paged_attention_ref(  # noqa: E731
+                q.reshape(B, 1, K * G, H), kp, vp, bt, lens, window=window,
+                k_scale=ks, v_scale=vs)
+            got = run().reshape(B, 1, K * G, H)
+            want = plain()
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = PAGED_INT8_TOL if int8 else PAGED_BF16_TOL
+            ok = bool(torch.isfinite(got).all().item()) and err < tol
+            ms = time_ms(run, iters=50)
+            pms = time_ms(plain, iters=10)
+            live = sum(lengths)
+            kv_bytes = live * K * (2 * H * (1 if int8 else 2)
+                                   + (8 if int8 else 0))
+            nbytes = q.numel() * 2 * 2 + kv_bytes + bt.numel() * 4 + B * 4
+            b, by = bound_ms(nbytes, 4.0 * K * G * H * live, BF16_FLOPS)
+            log(f"  paged_attention {'int8' if int8 else 'bf16'} window="
+                f"{window} splits={splits}: max_abs_err={err:.2e} (tol {tol}) "
+                f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms={b:.5f} ({by}) "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                fail(f"paged_attention int8={int8} window={window} err {err}")
+            rec.max_abs_err = max(rec.max_abs_err, err)
+            if not int8 and window == 0:
+                rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = ms, pms, b, by
+
+
+def check_flash(records):
+    """Causal prefill at full-width heads (N=28, K=4, H=128), B=4, at the
+    32-, 64- and 128-token prompt buckets (the serving run admits at 64)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fa
+    rec = records["flash_attention"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    B, N, K, H = 4, 28, 4, 128
+    for S in (32, 64, 128):
+        q = torch.randn((B, S, N, H), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, S, K, H), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, S, K, H), generator=g, device="cuda").to(torch.bfloat16)
+        run = lambda: fa.launch(q, k, v, causal=True)  # noqa: E731
+        plain = lambda: fa.flash_attention_ref(q, k, v, causal=True)  # noqa: E731
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = bool(torch.isfinite(got).all().item()) and err < FLASH_TOL
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        ms = time_ms(run, iters=50)
+        pms = time_ms(plain, iters=10)
+        lms = time_ms(lib, iters=50)
+        pairs = S * (S + 1) // 2
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b, by = bound_ms(nbytes, 4.0 * B * N * H * pairs, BF16_FLOPS)
+        log(f"  flash_attention S={S}: max_abs_err={err:.2e} (tol {FLASH_TOL}) ms={ms:.4f} "
+            f"plain_ms={pms:.4f} sdpa_ms={lms:.4f} bound_ms={b:.5f} ({by}) "
+            f"{'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attention S={S} err {err}")
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        if S == 64:                        # the serving run's prompt bucket
+            rec.ms, rec.plain_ms, rec.library_ms = ms, pms, lms
+            rec.bound_ms, rec.bound_by = b, by
+
+
+# ---------------------------------------------------------------------------
+# 4. serving at full width
+# ---------------------------------------------------------------------------
+
+
+def _requests(seed: int, vocab: int):
+    """8 prompts: four share a 32-token tool prefix (at one length, so their
+    left padding and the shared blocks line up), four are unrelated."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    prefix = [int(t) for t in rng.integers(2, vocab, size=32)]
+    prompts = []
+    for i in range(8):
+        n = 16 if i % 2 == 0 else 9 + 5 * i
+        tail = [int(t) for t in rng.integers(2, vocab, size=n)]
+        prompts.append(prefix + tail if i % 2 == 0 else tail)
+    return prompts
+
+
+def serve_once(cfg, variants, kv_cache_dtype, prompts, max_new, swap_at,
+               label, expect, device="cuda"):
+    """One engine, one main path: submit every prompt, step until drained
+    (hot-swapping Q8 -> Q4 after `swap_at` steps when given), check and
+    report. The launch counters are set to 0 just before the run and read
+    just after it; every kernel named in `expect` must have launched.
+    Returns this path's counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.serving import (EngineClient, ServingEngine,
+                                     SessionRequest, check_invariants)
+    from repro_torch.serving.scheduler import DONE
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    eng = ServingEngine(cfg, variants["q8"],
+                        RuntimeConfig(kv_cache_dtype=kv_cache_dtype),
+                        max_batch=4, max_seq=256, block_size=16,
+                        kv_layout="paged", device=device, seed=0)
+    eng.variant_name = "q8"
+    client = EngineClient(eng)
+    kernels.reset_launch_counts()
+    handles = [client.submit(SessionRequest(prompt=p, max_new_tokens=max_new,
+                                            eos_id=-1)) for p in prompts]
+    steps = 0
+    decode_s, decode_tokens = {"q8": 0.0, "q4": 0.0}, {"q8": 0, "q4": 0}
+    while eng.has_work():
+        if swap_at is not None and steps == swap_at:
+            eng.swap_params(variants["q4"], "q4")
+        variant = eng.variant_name
+        sync()
+        t0 = time.perf_counter()
+        eng.step()
+        sync()
+        dt = time.perf_counter() - t0
+        rec = eng.step_log[-1]
+        if rec["kind"] == "decode":
+            decode_s[variant] += dt
+            decode_tokens[variant] += rec["tokens"]
+        steps += 1
+        if steps > 10000:
+            fail(f"{label}: engine did not drain")
+    launches = kernels.launch_counts()
+    reqs = [h.request for h in handles]
+    bad = [r.rid for r in reqs if r.status != DONE
+           or len(r.output) != max_new]
+    if bad:
+        fail(f"{label}: requests not DONE with {max_new} tokens: {bad}")
+    stats = eng.stats()
+    hits = stats.prefix_cache.get("hits", 0)
+    saved = stats.prefix_cache.get("prefill_tokens_saved", 0)
+    if hits <= 0 or saved <= 0:
+        fail(f"{label}: no prefix-cache hits (hits={hits}, saved={saved})")
+    if device == "cuda" and eng.kernel_fallbacks != 0:
+        fail(f"{label}: kernel_fallbacks = {eng.kernel_fallbacks}")
+    errs = check_invariants(eng, reqs)
+    if errs:
+        fail(f"{label}: invariant violations: {errs}")
+    for r in reqs:
+        if any(not (0 <= t < cfg.vocab_size) for t in r.output):
+            fail(f"{label}: rid {r.rid} emitted an out-of-vocab token")
+    for v in ("q8", "q4"):
+        if decode_tokens[v]:
+            log(f"  {label} decode[{v}]: {decode_tokens[v]} tokens in "
+                f"{decode_s[v]:.3f} s host clock incl. sync -> "
+                f"{decode_tokens[v] / decode_s[v]:.1f} tokens/s, "
+                f"{1e3 * decode_s[v] / max(1, sum(1 for s in eng.step_log if s['kind'] == 'decode' and s['variant'] == v)):.2f} ms/step")
+    log(f"  {label}: {len(reqs)} DONE, steps={steps}, prefix hits={hits} "
+        f"({saved} prompt tokens from cache), "
+        f"cow={stats.prefix_cache.get('cow', 0)}, swaps={eng.swap_count}, "
+        f"kernel_fallbacks={eng.kernel_fallbacks}, invariants clean, "
+        f"launches={launches}")
+    idle = [k for k in expect if launches[k] <= 0]
+    if idle:
+        fail(f"{label}: kernels never launched on this path: {idle}")
+    return launches
+
+
+def decode_step_ms(cfg, params, kv_cache_dtype, label):
+    """Device time of one full-width decode step at batch 4 (CUDA events)."""
+    import torch
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.models import get_model
+    from repro_torch.sharding.param import init_params
+    model = get_model(cfg)
+    rcfg = RuntimeConfig(kv_cache_dtype=kv_cache_dtype)
+    nb = 16
+    pool = init_params(model.paged_cache_spec(rcfg, 4 * nb + 1, 16),
+                       torch.Generator(device="cuda").manual_seed(0), "cuda")
+    bt = (torch.arange(4 * nb, dtype=torch.int32, device="cuda")
+          .reshape(4, nb) + 1)
+    lens = torch.tensor([64, 96, 128, 160], dtype=torch.int32, device="cuda")
+    toks = torch.ones((4, 1), dtype=torch.int32, device="cuda")
+    step = lambda: model.decode_step_paged(params, pool, toks, lens, bt,  # noqa: E731
+                                           rcfg, seq_cap=256)
+    ms = time_ms(step, iters=5, warmup=1)
+    log(f"  decode step {label}: {ms:.2f} ms on the device timeline (CUDA "
+        f"events) at batch 4 -> {4e3 / ms:.1f} tokens/s")
+    profile_window(step, label)
+    return ms
+
+
+def profile_window(step, label, n: int = 3):
+    """Where a decode step's time goes: device self time by kernel over `n`
+    steps (torch.profiler), and the share of the window with no kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            step()
+        end.record()
+        end.synchronize()
+    window_ms = start.elapsed_time(end)
+    # device rows only: a CPU op's row repeats the time of the kernels it
+    # launched, which have rows of their own
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = evt.self_device_time_total
+        if us > 0:
+            rows.append((us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        log(f"  profile {label}: the profiler saw no device time")
+        return
+    log(f"  profile {label}: {n} steps in {window_ms:.2f} ms, kernels busy "
+        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / window_ms:.3f}")
+    for ms, count, key in rows[:8]:
+        log(f"    {ms / n:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
+            f"x{count // n:<4d} {key[:90]}")
+
+
+def phase_serve():
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.quant.qtensor import init_quantized
+    cfg = get_arch("carboncall-qwen2-7b")
+    spec = get_model(cfg).param_spec()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    variants = init_quantized(spec, ("q8", "q4"), gen, "cuda")
+    torch.cuda.synchronize()
+    log(f"serve: full-width q8+q4 weights made on the card in "
+        f"{time.perf_counter() - t0:.1f} s (host clock); "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    prompts = _requests(0, cfg.vocab_size)
+    per_path = [
+        serve_once(cfg, variants, "bf16", prompts, 8, swap_at=12,
+                   label="bf16-KV q8->q4", expect=kernels.KERNELS),
+        serve_once(cfg, variants, "int8", prompts, 8, swap_at=None,
+                   label="int8-KV q8", expect=("q8_matmul", "paged_attention",
+                                               "flash_attention")),
+    ]
+    launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+    log(f"serve: main-path launches, both paths summed: {launches}")
+    times = {}
+    for fmt in ("q8", "q4"):
+        times[fmt] = decode_step_ms(cfg, variants[fmt], "bf16", fmt)
+    return launches, times
+
+
+def main():
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        fail("src/repro_torch not found beside chip_smoke.py", code=2)
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a "
+             "CUDA card", code=2)
+    phase_device()
+    phase_build()
+    from repro_torch import kernels
+    records = {k: KernelRecord(k) for k in kernels.KERNELS}
+    log("kernels: each against its plain version")
+    check_quant_matmul(records, timed_m=4)
+    check_paged(records)
+    check_flash(records)
+    launches, _ = phase_serve()
+    log(json.dumps({"kernels": [records[k].to_json(launches[k])
+                                for k in kernels.KERNELS]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,3 @@
+from repro_torch.common.registry import get_arch, list_archs, register_arch
+
+__all__ = ["register_arch", "get_arch", "list_archs"]

@@ -1,0 +1,22 @@
+"""The paper's own serving model: Qwen2-7B (§IV) — the CarbonCall edge LLM.
+28L d_model=3584 28H (GQA kv=4) d_ff=18944 vocab=152064 [arXiv:2407.10671]
+"""
+from repro_torch.common.registry import register_arch
+from repro_torch.config import ModelConfig
+
+
+@register_arch("carboncall-qwen2-7b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="carboncall-qwen2-7b",
+        family="transformer",
+        num_layers=28,
+        d_model=3584,
+        num_heads=28,
+        num_kv_heads=4,
+        head_dim=128,
+        d_ff=18944,
+        vocab_size=152064,
+        qkv_bias=True,
+        rope_theta=1e6,
+    )

@@ -1,0 +1,127 @@
+"""Transformer building blocks of the pattern-1 transformer family.
+
+All parameters are ParamDef-spec'd (see sharding/param.py); attention weights
+are stored with flattened head dims, (d, N*H), as in the JAX package, so a
+weight tree crosses packages leaf for leaf.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import layers as L
+from repro_torch.quant import dense
+from repro_torch.sharding.param import ParamDef
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+
+
+def attn_spec(cfg: ModelConfig, lead=(), lead_log=()):
+    d, N, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    H = cfg.resolved_head_dim
+    s = {
+        "wq": ParamDef((*lead, d, N * H), (*lead_log, "embed", "heads")),
+        "wk": ParamDef((*lead, d, K * H), (*lead_log, "embed", "kv_heads")),
+        "wv": ParamDef((*lead, d, K * H), (*lead_log, "embed", "kv_heads")),
+        "wo": ParamDef((*lead, N * H, d), (*lead_log, "heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = ParamDef((*lead, N * H), (*lead_log, "heads"), init="zeros")
+        s["bk"] = ParamDef((*lead, K * H), (*lead_log, "kv_heads"), init="zeros")
+        s["bv"] = ParamDef((*lead, K * H), (*lead_log, "kv_heads"), init="zeros")
+    return s
+
+
+def mlp_spec(cfg: ModelConfig, lead=(), lead_log=(), d_ff: Optional[int] = None):
+    d, f = cfg.d_model, d_ff or cfg.d_ff
+    return {
+        "wg": ParamDef((*lead, d, f), (*lead_log, "embed", "mlp")),
+        "wu": ParamDef((*lead, d, f), (*lead_log, "embed", "mlp")),
+        "wo": ParamDef((*lead, f, d), (*lead_log, "mlp", "embed")),
+    }
+
+
+def norm_spec(cfg: ModelConfig, lead=(), lead_log=()):
+    return ParamDef((*lead, cfg.d_model), (*lead_log, None), init="zeros")
+
+
+def block_norms_spec(cfg: ModelConfig, lead=(), lead_log=()):
+    return {
+        "pre_attn": norm_spec(cfg, lead, lead_log),
+        "pre_mlp": norm_spec(cfg, lead, lead_log),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Applies
+# ---------------------------------------------------------------------------
+
+
+def mlp_apply(p, x, cfg: ModelConfig):
+    """SwiGLU."""
+    h = F.silu(dense(x, p["wg"])) * dense(x, p["wu"])
+    return dense(h, p["wo"])
+
+
+def qkv_proj(p, x, cfg: ModelConfig, cos, sin):
+    """Project + reshape to heads + RoPE. Returns q (B,S,N,H), k/v (B,S,K,H)."""
+    B, S, _ = x.shape
+    N, K, H = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    q = dense(x, p["wq"])
+    k = dense(x, p["wk"])
+    v = dense(x, p["wv"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(q.dtype)
+        k = k + p["bk"].to(k.dtype)
+        v = v + p["bv"].to(v.dtype)
+    q = q.reshape(B, S, N, H)
+    k = k.reshape(B, S, K, H)
+    v = v.reshape(B, S, K, H)
+    if cos is not None:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    return q, k, v
+
+
+def attn_apply(p, x, cfg: ModelConfig, *, cos, sin):
+    """Full-sequence causal attention (prefill). Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, x, cfg, cos, sin)
+    o = L.attention(q, k, v)
+    return dense(o.reshape(B, S, -1), p["wo"]), (k, v)
+
+
+def attn_decode_paged_apply(p, x, cfg: ModelConfig, *, cos, sin, pool_i,
+                            lengths, block_tables, seq_cap: int):
+    """One-token decode against a per-layer paged pool dict {k, v[, k_scale,
+    v_scale]} of shape (num_blocks, bs, K, H). The new token's KV is written
+    IN PLACE into the physical block holding position `lengths[b]` (resolved
+    through `block_tables`) — the port updates the pool where the JAX package
+    returns a new one, which saves a pool-sized copy per layer. Rows at or
+    past `seq_cap`, and dead rows (tables pointing at scratch block 0), drop
+    their write into the scratch block. Reads go through the paged-attention
+    dispatch: the Hopper kernel for CUDA pools, the gather version on CPU."""
+    from repro_torch.kernels.paged_attention.ops import dispatch_paged_attention
+    from repro_torch.models.transformer import quantize_kv_for_cache
+    B = x.shape[0]
+    q, k, v = qkv_proj(p, x, cfg, cos, sin)
+    k1, v1 = k[:, 0], v[:, 0]                                # (B, K, H)
+    bs = pool_i["k"].shape[1]
+    nb = block_tables.shape[1]
+    writable = lengths < seq_cap
+    blk_idx = torch.clamp(lengths // bs, 0, nb - 1).long()
+    bid = torch.gather(block_tables, 1, blk_idx[:, None])[:, 0].long()
+    bid = torch.where(writable, bid, torch.zeros_like(bid))  # scratch block
+    off = torch.where(writable, lengths % bs, torch.zeros_like(lengths)).long()
+    entry = quantize_kv_for_cache("k_scale" in pool_i, k1, v1)
+    for key, val in entry.items():
+        pool_i[key][bid, off] = val.to(pool_i[key].dtype)
+    read_len = torch.clamp(lengths + 1, max=seq_cap).to(torch.int32)
+    o = dispatch_paged_attention(q, pool_i, block_tables, read_len)
+    return dense(o.reshape(B, 1, -1), p["wo"]), pool_i

@@ -1,0 +1,823 @@
+"""Continuous-batching serving engine with a paged KV cache + prefix caching.
+
+The port of `repro.serving.engine` for the paged layout. `max_batch` decode
+slots; new requests prefill into free slots (prompts padded to a bucket) and
+every step() decodes all active slots in one batched call. KV lives in a
+block pool of `block_size`-token blocks on the device; each slot maps logical
+positions to physical blocks through a host-side block table. Blocks are
+refcounted (`BlockPool`) and prompt prefixes are cached (`PrefixCache`):
+admission hashes the padded prompt at every block boundary, reuses already
+prefilled blocks copy-on-write, and runs the model only over the non-cached
+suffix. Under pool pressure the lowest-priority slot is preempted; its exact
+token sequence is saved and re-prefilled at the original positions on
+resume, so temperature-0 streams are unchanged. `swap_params` installs
+another weight tree between steps (the CarbonCall Q8 <-> Q4 hot swap);
+prefix-cache entries are salted by variant.
+
+The device path: cold admissions run `transformer.prefill` (flash attention
+kernel), cache hits `prefill_paged` (plain `prefix_attention`), each decode
+step `decode_step_paged` (paged attention kernel), and every linear layer
+the q8/q4 kernels. A CPU engine runs the kernels' plain versions, and each
+of its decode steps counts into `kernel_fallbacks`, as in the JAX package.
+The pool is updated in place.
+
+Not ported yet, and refused at construction with the ROADMAP item that will
+bring them: chunked prefill, speculative decoding, the dense KV layout, and
+the data-parallel mesh (Queue 1 items 4 and 9).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.config import ModelConfig, RuntimeConfig
+from repro_torch.kernels.paged_attention.ops import \
+    paged_attention_uses_fallback
+from repro_torch.models import get_model
+from repro_torch.models.transformer import (paged_block_bytes,
+                                            quantize_kv_for_cache)
+from repro_torch.serving.block_pool import BlockPool, PrefixCache
+from repro_torch.serving.protocol import (EngineConfig, EngineStats,
+                                          SpecDecodeConfig)
+from repro_torch.serving.sampler import sample_tokens
+from repro_torch.serving.scheduler import (
+    CANCELLED, DONE, EngineStallError, PoolExhaustedError, RequestHandle,
+    RUNNING, Scheduler, SessionRequest, TERMINAL, WAITING)
+from repro_torch.sharding.param import init_params
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    eos_id: int = 1
+    temperature: float = 0.0
+    priority: int = 0                      # larger runs first / preempts lower
+    deadline: Optional[float] = None       # absolute engine-clock wait limit
+    tier: str = "default"                  # QoS class label (telemetry only)
+    # filled by the engine:
+    output: List[int] = dataclasses.field(default_factory=list)
+    status: str = WAITING
+    submit_time: float = 0.0
+    enqueue_time: float = 0.0
+    queue_wait_s: float = 0.0              # total time spent WAITING (all stints)
+    first_token_time: Optional[float] = None
+    done_time: Optional[float] = None
+    seq: int = -1                          # submission order (scheduler key)
+    admit_seq: int = -1                    # admission order (victim tie-break)
+    # saved token sequence (exact KV positions 0..len-1) while preempted
+    resume_row: Optional[np.ndarray] = None
+
+
+class VirtualClock:
+    """Deterministic virtual time source for tests and carbon simulation.
+    Only `advance()` moves time."""
+
+    def __init__(self, t0: float = 0.0):
+        self.t = float(t0)
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float):
+        self.t += float(dt)
+
+
+def _bucket(n: int, buckets) -> int:
+    for b in buckets:
+        if n <= b:
+            return b
+    return buckets[-1]
+
+
+def _pow2(n: int, cap: int) -> int:
+    """Round up to a power of two, capped. Kept from the JAX package (where
+    it bounds jit executable counts) so both engines run the same padded
+    shapes; the extra columns are fully masked."""
+    p = 1
+    while p < n:
+        p <<= 1
+    return min(p, cap)
+
+
+def _resolve_device(device) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "ServingEngine: device='cuda' but no CUDA card is visible; pass "
+            "device='cpu' to run the plain versions on the CPU")
+    return dev
+
+
+class ServingEngine:
+    def __init__(self, cfg: ModelConfig, params, rcfg: RuntimeConfig, *,
+                 config: Optional[EngineConfig] = None,
+                 max_batch: Optional[int] = None,
+                 max_seq: Optional[int] = None,
+                 prompt_buckets=None,
+                 kv_layout: Optional[str] = None,
+                 block_size: Optional[int] = None,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 spec_decode: Optional[SpecDecodeConfig] = None,
+                 mesh=None,
+                 clock: Callable[[], float] = time.monotonic,
+                 step_cost_fn: Optional[Callable[[str, int, int], float]] = None,
+                 device="cuda",
+                 seed: int = 42):
+        base = config if config is not None else EngineConfig()
+        over = {k: v for k, v in (("max_batch", max_batch),
+                                  ("max_seq", max_seq),
+                                  ("kv_layout", kv_layout),
+                                  ("block_size", block_size),
+                                  ("num_blocks", num_blocks),
+                                  ("prefill_chunk", prefill_chunk),
+                                  ("spec_decode", spec_decode))
+                if v is not None}
+        if prompt_buckets is not None:
+            over["prompt_buckets"] = tuple(prompt_buckets)
+        self.config = config = base.replace(**over) if over else base
+        if config.prefill_chunk is not None:
+            raise NotImplementedError(
+                "prefill_chunk: chunked prefill is not ported yet "
+                "(ROADMAP Queue 1 item 4, step 2)")
+        if config.spec_decode is not None:
+            raise NotImplementedError(
+                "spec_decode: speculative decoding is not ported yet "
+                "(ROADMAP Queue 1 item 4, step 3)")
+        if config.kv_layout == "dense":
+            raise NotImplementedError(
+                "kv_layout='dense' is not ported yet (ROADMAP Queue 1 "
+                "item 4, step 5)")
+        if mesh is not None or config.data_shards > 1:
+            raise NotImplementedError(
+                "mesh / data_shards > 1: the data-parallel engine is not "
+                "ported yet (ROADMAP Queue 1 item 9)")
+        if config.kv_layout not in ("auto", "paged"):
+            raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
+                             "expected 'auto' or 'paged'")
+        # kv_cache_dtype: an explicit int8 on either surface wins, and both
+        # end up agreeing (as in the JAX package)
+        if config.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(
+                f"unknown kv_cache_dtype {config.kv_cache_dtype!r}; "
+                "expected 'bf16' or 'int8'")
+        kv_dtype = config.kv_cache_dtype
+        if kv_dtype == "bf16" and rcfg.kv_cache_dtype != "bf16":
+            kv_dtype = rcfg.kv_cache_dtype
+        if kv_dtype != rcfg.kv_cache_dtype:
+            rcfg = dataclasses.replace(rcfg, kv_cache_dtype=kv_dtype)
+        if kv_dtype != config.kv_cache_dtype:
+            self.config = config = config.replace(kv_cache_dtype=kv_dtype)
+        self.device = _resolve_device(device)
+        self.cfg = cfg
+        self.rcfg = rcfg
+        self.model = get_model(cfg)
+        if not self.model.supports_paged():
+            raise ValueError(f"{cfg.name}: family {cfg.family!r} does not "
+                             "implement the paged KV contract")
+        self.params = params
+        self.max_batch = max_batch = config.max_batch
+        self.max_seq = max_seq = config.max_seq
+        self.prompt_buckets = tuple(sorted(
+            {b for b in config.prompt_buckets if b < max_seq} | {max_seq}))
+        self.clock = clock
+        self.step_cost_fn = step_cost_fn
+        self.variant_name = "bf16"
+        self.swap_count = 0
+        self.kv_layout = "paged"
+        self.block_size = block_size = config.block_size
+        self.blocks_per_slot = -(-max_seq // block_size)
+        num_blocks = config.num_blocks
+        if num_blocks is None:
+            # all slots full + one transient CoW block per slot + one slot's
+            # worth of slack for cached prefixes + scratch block 0
+            num_blocks = ((max_batch + 1) * self.blocks_per_slot
+                          + max_batch + 2)
+            if rcfg.kv_cache_dtype == "int8":
+                # same byte budget as the bf16 default pool, ~2x the blocks
+                budget = (num_blocks - 1) * paged_block_bytes(
+                    cfg, block_size, "bf16")
+                num_blocks = 1 + budget // paged_block_bytes(
+                    cfg, block_size, "int8")
+        pool_spec = self.model.paged_cache_spec(rcfg, num_blocks, block_size)
+        self.pool = init_params(pool_spec, None, self.device)
+        self.block_pool = BlockPool(num_blocks, block_size)
+        self.prefix_cache = PrefixCache(self.block_pool)
+        self.block_tables = np.zeros((max_batch, self.blocks_per_slot),
+                                     np.int32)
+        self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+        self.lengths = np.zeros((max_batch,), np.int32)
+        self.cow_count = 0
+        self.slots: List[Optional[Request]] = [None] * max_batch
+        # the admitted token row + emitted-count baseline per slot: together
+        # they reconstruct the exact KV sequence when a slot is preempted
+        self._slot_row: List[Optional[np.ndarray]] = [None] * max_batch
+        self._slot_emit0 = [0] * max_batch
+        self.scheduler = Scheduler()
+        self._admit_seq = 0
+        self._rid_counter = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # telemetry
+        self.tokens_emitted = 0
+        self.prefill_tokens_total = 0
+        self.prefill_tokens_saved = 0
+        self.peak_active = 0
+        self.draft_tokens = 0
+        self.accepted_tokens = 0
+        # decode steps whose paged-attention reads ran the plain version (a
+        # CPU engine); a pure function of the device, counted per step
+        self._paged_fallback = paged_attention_uses_fallback(self.device)
+        self.kernel_fallbacks = 0
+        self.step_log: List[Dict] = []
+
+    # -- public API ---------------------------------------------------------
+
+    def swap_params(self, params, variant_name: str):
+        """Hot-swap the weight tree (CarbonCall Q8<->Q4 switch)."""
+        self.params = params
+        self.variant_name = variant_name
+        self.swap_count += 1
+
+    def submit(self, req: Request) -> RequestHandle:
+        """Queue a request; returns an async handle (poll/result/cancel)."""
+        self.scheduler.enqueue(req, self.clock())
+        return RequestHandle(self, req)
+
+    def client(self) -> "EngineClient":
+        return EngineClient(self)
+
+    def next_rid(self) -> int:
+        self._rid_counter += 1
+        return self._rid_counter - 1
+
+    def cancel(self, req: Request) -> bool:
+        """Cancel a waiting or running request, freeing its slot and blocks.
+        False if it already reached a terminal state."""
+        if req.status in TERMINAL:
+            return False
+        if req.status == WAITING:
+            self.scheduler.remove(req)
+        elif req in self.slots:
+            self._free_slot(self.slots.index(req))
+        req.status = CANCELLED
+        req.resume_row = None
+        self.scheduler.note_cancelled(req)
+        return True
+
+    @property
+    def pending(self) -> List[Request]:
+        return self.scheduler.waiting
+
+    @property
+    def active(self) -> int:
+        return sum(s is not None for s in self.slots)
+
+    def has_work(self) -> bool:
+        return self.active > 0 or self.scheduler.has_waiting()
+
+    def scheduler_stats(self) -> Dict[str, float]:
+        stats = self.scheduler.stats()
+        stats["peak_active"] = self.peak_active
+        return stats
+
+    def prefix_cache_stats(self) -> Dict[str, int]:
+        return {"hits": self.prefix_cache.hits,
+                "misses": self.prefix_cache.misses,
+                "entries": len(self.prefix_cache.entries),
+                "cow": self.cow_count,
+                "free_blocks": self.block_pool.num_free,
+                "prefill_tokens_total": self.prefill_tokens_total,
+                "prefill_tokens_saved": self.prefill_tokens_saved}
+
+    def stats(self) -> EngineStats:
+        return EngineStats.from_engine(self)
+
+    def step(self) -> List[Request]:
+        """Admit waiting requests into free slots (one batched prefill or one
+        preemption-resume re-prefill) or run one batched decode step.
+        Returns requests completed this step."""
+        t0 = self.clock()
+        resident_rids = [s.rid for s in self.slots if s is not None]
+        self.scheduler.expire_due(t0)
+        completed: List[Request] = []
+        work = self._prefill_work()
+        if work is not None:
+            kind = work["kind"]
+            tokens_this_step = work["tokens"]
+            charged, cached = work["charged"], work["cached"]
+            rids = work["rids"]
+            occupancy = max(self.active, 1)
+        elif self.active:
+            charged = cached = 0
+            tokens_this_step, rids = self._decode_active(completed)
+            kind = "decode"
+            occupancy = max(len(rids), 1)
+            if self._paged_fallback:
+                self.kernel_fallbacks += 1
+        else:
+            if self.scheduler.has_waiting():
+                raise PoolExhaustedError(
+                    "paged KV pool exhausted: cannot admit any pending "
+                    "request with an idle engine — raise num_blocks",
+                    waiting=len(self.pending),
+                    free_blocks=self.block_pool.num_free)
+            return completed
+        self.peak_active = max(self.peak_active, self.active, occupancy)
+        if self.step_cost_fn is not None and hasattr(self.clock, "advance"):
+            cost_tokens = charged if kind != "decode" else tokens_this_step
+            cost = float(self.step_cost_fn(kind, cost_tokens, occupancy))
+            if cost > 0.0:
+                self.clock.advance(cost)
+        for req in completed:                # completion is at end of step
+            req.done_time = self.clock()
+            self.scheduler.note_done(req, req.done_time)
+        dt = max(self.clock() - t0, 1e-9)
+        self.tokens_emitted += tokens_this_step
+        self.step_log.append({
+            "kind": kind, "tokens": tokens_this_step, "dt": dt,
+            "tps": tokens_this_step / dt, "variant": self.variant_name,
+            "active": occupancy, "prompt_tokens": charged,
+            "cached_tokens": cached, "rids": rids,
+            "resident_rids": resident_rids})
+        return completed
+
+    def run_until_drained(self, max_steps: int = 100000) -> List[Request]:
+        done = []
+        for _ in range(max_steps):
+            if not self.has_work():
+                return done
+            done.extend(self.step())
+        if self.has_work():
+            raise EngineStallError(
+                f"engine not drained after {max_steps} steps "
+                f"(active={self.active}, waiting={len(self.pending)})")
+        return done
+
+    # -- admission ----------------------------------------------------------
+
+    def _free_slots(self) -> List[int]:
+        return [i for i, s in enumerate(self.slots) if s is None]
+
+    def _prefill_work(self) -> Optional[Dict]:
+        """One unit of pending prefill work for the queue head — a resume
+        re-prefill or a batched fresh admission — as its step-log record, or
+        None when nothing can run (the step decodes instead)."""
+        head = self.scheduler.head()
+        if head is None:
+            return None
+        free = self._free_slots()
+        if not free:
+            return None
+        if head.resume_row is not None:
+            # strict priority: a blocked resume never lets lower-priority
+            # fresh admissions jump it — decode continues instead
+            got = self._try_resume(head, free[0])
+            if got < 0:
+                return None
+            return {"kind": "prefill", "tokens": 0, "charged": got,
+                    "cached": 0, "rids": [head.rid]}
+        admitted, charged, cached = self._admit_batch(free)
+        if not admitted:
+            return None
+        return {"kind": "prefill", "tokens": len(admitted),
+                "charged": charged, "cached": cached,
+                "rids": [r.rid for r in admitted]}
+
+    def _place(self, req: Request, slot: int, row: np.ndarray):
+        """Common slot bookkeeping at (re)admission."""
+        self.slots[slot] = req
+        self._slot_row[slot] = np.asarray(row, np.int32)
+        req.status = RUNNING
+        req.admit_seq = self._admit_seq
+        self._admit_seq += 1
+
+    def _admit_batch(self, free: List[int]):
+        """Paged admission: look up each prompt's longest cached prefix chain,
+        share those blocks (copy-on-write protected), allocate fresh blocks
+        for the rest, and prefill only the non-cached suffixes. Watermark
+        accounting: an admission needs its fresh prompt blocks plus one
+        growth block per resident slot; over-commitment is resolved later by
+        preemption. Returns (admitted, prompt tokens charged, cached)."""
+        bs = self.block_size
+        cand: List[Request] = []
+        for req in self.scheduler.waiting:
+            if req.resume_row is not None:
+                break               # resumes re-admit one per step
+            cand.append(req)
+            if len(cand) == len(free):
+                break
+        if not cand:
+            return [], 0, 0
+        b = _bucket(max(len(r.prompt) for r in cand), self.prompt_buckets)
+        nb_prompt = -(-b // bs)
+        rows = []
+        for pos, req in enumerate(cand):
+            row = self._padded_row(req.prompt, b)
+            hit = self.prefix_cache.lookup(row, salt=self.variant_name)
+            cached_len = hit.cached_len if hit else 0
+            cached_blocks = list(hit.blocks) if hit else []
+            if hit and cached_len == b and hit.last_logits is None:
+                # whole-row match against an interior boundary of a longer
+                # cached row: no stored logits, so recompute the last stripe
+                cached_len -= bs if b % bs == 0 else b % bs
+                cached_blocks = cached_blocks[:-1]
+            # hold refs on the cached chain BEFORE allocating: eviction under
+            # pressure must not free blocks this admission is about to share
+            for bid in cached_blocks:
+                self.block_pool.incref(bid)
+            n_fresh = nb_prompt - len(cached_blocks)
+            headroom = self.active + len(rows) + 1
+            preempted_before = self.scheduler.preemptions
+            ok = self._reclaim(n_fresh + headroom,
+                               priority=req.priority if pos == 0 else None)
+            fresh = self._alloc_blocks(n_fresh) if ok else None
+            if fresh is None:
+                for bid in cached_blocks:
+                    self.block_pool.decref(bid)
+                break
+            self.scheduler.note_admitted(req, self.clock())
+            rows.append({"req": req, "row": row, "hit": hit,
+                         "cached_len": cached_len,
+                         "blocks": cached_blocks + fresh})
+            if cached_len > 0:
+                self.prefix_cache.hits += 1
+            else:
+                self.prefix_cache.misses += 1
+            if self.scheduler.preemptions > preempted_before:
+                # the head preempted a victim to get in: stop the batch so
+                # the requeued victim is reconsidered first
+                break
+        if not rows:
+            return [], 0, 0
+
+        full = [r for r in rows if r["cached_len"] == b]
+        compute = [r for r in rows if r["cached_len"] < b]
+        if compute:
+            if all(r["cached_len"] == 0 for r in compute):
+                logits_c = self._prefill_cold(compute, b)
+            else:
+                logits_c = self._prefill_suffix(compute, b)
+            for i, r in enumerate(compute):
+                r["logits"] = logits_c[i].clone()
+                self.prefix_cache.insert(r["row"], r["blocks"],
+                                         last_logits=r["logits"],
+                                         salt=self.variant_name)
+        for r in full:
+            r["logits"] = r["hit"].last_logits
+
+        charged = cached = 0
+        for r, slot in zip(rows, free):
+            req = r["req"]
+            pad = b - min(len(req.prompt), b)
+            cached_real = max(0, r["cached_len"] - pad)
+            charged += max(0, len(req.prompt) - cached_real)
+            cached += cached_real
+            self.slot_blocks[slot] = list(r["blocks"])
+            self.block_tables[slot] = 0
+            self.block_tables[slot, :len(r["blocks"])] = r["blocks"]
+            self.lengths[slot] = b
+            self._place(req, slot, r["row"])
+            tok = self._sample(r["logits"][None, :], req)
+            self._emit(req, slot, int(tok[0]))
+            self._slot_emit0[slot] = len(req.output)
+        self.prefill_tokens_total += charged + cached
+        self.prefill_tokens_saved += cached
+        return [r["req"] for r in rows], charged, cached
+
+    # -- preemption / resume -------------------------------------------------
+
+    def _reclaim(self, want_free: int, *, priority: Optional[int]) -> bool:
+        """Bring the pool's free count up to `want_free`: first by LRU
+        prefix-cache eviction, then (when `priority` is given) by preempting
+        strictly-lower-priority running slots on the caller's behalf."""
+        while self.block_pool.num_free < want_free:
+            if self.prefix_cache.evict_lru():
+                continue
+            victim = None
+            if priority is not None:
+                victim = Scheduler.pick_victim(
+                    [(s, r) for s, r in enumerate(self.slots)
+                     if r is not None], below=priority)
+            if victim is None:
+                return False
+            self._preempt_slot(victim)
+        return True
+
+    def _preempt_slot(self, i: int):
+        """Evict slot `i`: save the exact token sequence its KV covers, free
+        its blocks, and put it back at the front of its priority class."""
+        req = self.slots[i]
+        e = self._slot_emit0[i]
+        seq = np.concatenate([
+            self._slot_row[i],
+            np.asarray(req.output[e - 1:len(req.output) - 1], np.int32)])
+        req.resume_row = seq[:int(self.lengths[i])]
+        self._free_slot(i)
+        self.scheduler.note_preempted(req)
+        self.scheduler.requeue(req, self.clock())
+
+    def _try_resume(self, req: Request, slot: int) -> int:
+        """Re-admit a preempted request: re-prefill its saved sequence at
+        the exact original positions (right-padded to a power-of-two width;
+        causal attention never sees the padding). Returns the recomputed
+        token count, or -1 if blocks are still unavailable."""
+        bs = self.block_size
+        row = req.resume_row
+        L = len(row)
+        nb = -(-L // bs)
+        if not self._reclaim(nb + self.active + 1, priority=req.priority):
+            return -1
+        blocks = self._alloc_blocks(nb)
+        if blocks is None:                   # unreachable after _reclaim
+            return -1
+        W = _pow2(L, self.max_seq)
+        toks = np.zeros((self.max_batch, W), np.int32)
+        toks[0, :L] = row
+        _, entry, _ = self.model.prefill(self.params, self._batch(toks),
+                                         self.rcfg)
+        dst = [blocks[p // bs] * bs + p % bs for p in range(L)]
+        self._scatter(entry, dst, [0] * L, list(range(L)))
+        self.slot_blocks[slot] = list(blocks)
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :nb] = blocks
+        self.lengths[slot] = L
+        self._place(req, slot, row)
+        self._slot_emit0[slot] = len(req.output)
+        req.resume_row = None
+        self.scheduler.note_admitted(req, self.clock())
+        return L
+
+    def _decode_alloc(self, i: int) -> Optional[int]:
+        """Allocate one block for decoding slot `i` under pool pressure:
+        evict cached prefixes, then preempt the lowest-priority slot. None
+        when slot `i` preempted itself; raises when a single resident
+        sequence cannot fit the pool."""
+        while True:
+            bid = self.block_pool.alloc()
+            if bid is not None:
+                return bid
+            if self.prefix_cache.evict_lru():
+                continue
+            active = [(s, r) for s, r in enumerate(self.slots)
+                      if r is not None]
+            if len(active) <= 1:
+                raise PoolExhaustedError(
+                    "paged KV pool exhausted mid-decode with no preemptable "
+                    "slot — raise num_blocks",
+                    waiting=len(self.pending),
+                    free_blocks=self.block_pool.num_free)
+            victim = Scheduler.pick_victim(active)
+            self._preempt_slot(victim)
+            if victim == i:
+                return None
+
+    # -- device-side KV movement ----------------------------------------------
+
+    def _batch(self, tokens: np.ndarray) -> Dict[str, torch.Tensor]:
+        return {"tokens": torch.as_tensor(tokens, device=self.device)}
+
+    def _scatter(self, entry, dst, src_b, src_s):
+        """Write entry[key][:, src_b[i], src_s[i]] into flat pool position
+        dst[i] (= block_id * block_size + offset) for every i, per leaf."""
+        dev = self.device
+        dst_t = torch.as_tensor(dst, dtype=torch.long, device=dev)
+        b_t = torch.as_tensor(src_b, dtype=torch.long, device=dev)
+        s_t = torch.as_tensor(src_s, dtype=torch.long, device=dev)
+        for key, leaf in self.pool.items():
+            flat = leaf.view(leaf.shape[0], leaf.shape[1] * leaf.shape[2],
+                             *leaf.shape[3:])
+            flat[:, dst_t] = entry[key][:, b_t, s_t].to(leaf.dtype)
+
+    def _copy_block(self, dst: int, src: int):
+        for leaf in self.pool.values():
+            leaf[:, dst] = leaf[:, src]
+
+    def _gather_prefix(self, prefix_bids: np.ndarray):
+        """Cached prefix blocks as a dense per-row (k, v) view, bf16."""
+        bids = torch.as_tensor(prefix_bids, dtype=torch.long,
+                               device=self.device)
+        nbp = bids.shape[1]
+
+        def view(key):
+            g = self.pool[key][:, bids]          # (L, B, nbp, bs, ...)
+            return g.reshape(g.shape[0], g.shape[1], nbp * self.block_size,
+                             *g.shape[4:])
+
+        k_pre, v_pre = view("k"), view("v")
+        if "k_scale" in self.pool:
+            k_pre = (k_pre.to(torch.float32)
+                     * view("k_scale").unsqueeze(-1)).to(torch.bfloat16)
+            v_pre = (v_pre.to(torch.float32)
+                     * view("v_scale").unsqueeze(-1)).to(torch.bfloat16)
+        return k_pre, v_pre
+
+    def _prefill_cold(self, compute, b: int):
+        """No cached prefix anywhere in the batch: run the stock full-row
+        prefill and scatter every position into the rows' blocks."""
+        toks = np.zeros((self.max_batch, b), np.int32)
+        for i, r in enumerate(compute):
+            toks[i] = r["row"]
+        logits, entry, _ = self.model.prefill(self.params, self._batch(toks),
+                                              self.rcfg)
+        dst, src_b, src_s = [], [], []
+        for i, r in enumerate(compute):
+            for p in range(b):
+                dst.append(r["blocks"][p // self.block_size]
+                           * self.block_size + p % self.block_size)
+                src_b.append(i)
+                src_s.append(p)
+        self._scatter(entry, dst, src_b, src_s)
+        return logits
+
+    def _prefill_suffix(self, compute, b: int):
+        """At least one row has a cached prefix: gather the prefix KV views
+        and run the model over the suffixes only (suffix width and prefix
+        block count rounded up to powers of two, as in the JAX package)."""
+        bs = self.block_size
+        s_suf = _pow2(b - min(r["cached_len"] for r in compute), b)
+        p_len = max(r["cached_len"] for r in compute)
+        nbp = _pow2(-(-p_len // bs), self.blocks_per_slot)
+        toks = np.zeros((self.max_batch, s_suf), np.int32)
+        bids = np.zeros((self.max_batch, nbp), np.int32)
+        plens = np.zeros((self.max_batch,), np.int32)
+        for i, r in enumerate(compute):
+            cl = r["cached_len"]
+            suf = r["row"][cl:]
+            toks[i, s_suf - len(suf):] = suf
+            bids[i, :cl // bs] = r["blocks"][:cl // bs]
+            plens[i] = cl
+        batch = self._batch(toks)
+        batch["positions"] = torch.arange(b - s_suf, b, dtype=torch.int32,
+                                          device=self.device)
+        k_pre, v_pre = self._gather_prefix(bids)
+        logits, (k_suf, v_suf) = self.model.prefill_paged(
+            self.params, batch, k_pre, v_pre,
+            torch.as_tensor(plens, device=self.device), self.rcfg)
+        dst, src_b, src_s = [], [], []
+        for i, r in enumerate(compute):
+            for p in range(r["cached_len"], b):
+                dst.append(r["blocks"][p // bs] * bs + p % bs)
+                src_b.append(i)
+                src_s.append(p - (b - s_suf))
+        entry = quantize_kv_for_cache("k_scale" in self.pool, k_suf, v_suf)
+        self._scatter(entry, dst, src_b, src_s)
+        return logits
+
+    def _padded_row(self, prompt: List[int], b: int) -> np.ndarray:
+        p = prompt[-b:] if len(prompt) > b else \
+            [0] * (b - len(prompt)) + list(prompt)
+        return np.asarray(p, np.int32)
+
+    def _alloc_blocks(self, n: int) -> Optional[List[int]]:
+        """Allocate n blocks, evicting LRU prefix-cache entries under
+        pressure; None (nothing held) if the pool is truly exhausted."""
+        got: List[int] = []
+        while len(got) < n:
+            bid = self.block_pool.alloc()
+            if bid is not None:
+                got.append(bid)
+            elif not self.prefix_cache.evict_lru():
+                for g in got:
+                    self.block_pool.decref(g)
+                return None
+        return got
+
+    # -- decode -------------------------------------------------------------
+
+    def _decode_active(self, completed: List[Request]):
+        """One batched decode step over the resident slots. Returns
+        (tokens emitted, rids of the slots that actually decoded)."""
+        last = np.zeros((self.max_batch, 1), np.int32)
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                last[i, 0] = req.output[-1] if req.output else (
+                    req.prompt[-1] if req.prompt else 0)
+        self._prepare_decode_blocks()
+        dev = self.device
+        logits, self.pool = self.model.decode_step_paged(
+            self.params, self.pool, torch.as_tensor(last, device=dev),
+            torch.as_tensor(self.lengths, device=dev),
+            torch.as_tensor(self.block_tables, device=dev), self.rcfg,
+            seq_cap=self.max_seq)
+        # saturate at max_seq: a full context drops further KV writes
+        for i, req in enumerate(self.slots):
+            if req is not None:
+                self.lengths[i] = min(self.lengths[i] + 1, self.max_seq)
+        emitted = 0
+        rids: List[int] = []
+        toks = None
+        for i, req in enumerate(self.slots):
+            if req is None:
+                continue
+            if toks is None:
+                toks = self._sample(logits, req)
+            tok = int(toks[i])
+            self._emit(req, i, tok)
+            emitted += 1
+            rids.append(req.rid)
+            if tok == req.eos_id or len(req.output) >= req.max_new_tokens:
+                completed.append(req)        # done_time stamped at end of step
+                req.status = DONE
+                self._free_slot(i)
+        return emitted, rids
+
+    def _prepare_decode_blocks(self):
+        """Host-side block management before a paged decode step: extend a
+        slot's chain when its write position crosses a block boundary, and
+        copy-on-write when it is about to write into a shared block."""
+        bs = self.block_size
+        for i, req in enumerate(self.slots):
+            if req is None or self.slots[i] is None:
+                continue                     # slot preempted earlier this step
+            pos = int(self.lengths[i])
+            if pos >= self.max_seq:
+                continue                     # write is dropped by the model
+            blk = pos // bs
+            bid = int(self.block_tables[i, blk])
+            if bid == 0:
+                new = self._decode_alloc(i)
+                if new is None:
+                    continue                 # slot i preempted itself
+                self.block_tables[i, blk] = new
+                self.slot_blocks[i].append(new)
+            elif self.block_pool.is_shared(bid):
+                new = self._decode_alloc(i)
+                if new is None:
+                    continue
+                self._copy_block(new, bid)
+                self.block_pool.decref(bid)
+                self.block_tables[i, blk] = new
+                self.slot_blocks[i][blk] = new
+                self.cow_count += 1
+
+    def _free_slot(self, i: int):
+        self.slots[i] = None
+        self._slot_row[i] = None
+        self._slot_emit0[i] = 0
+        for bid in self.slot_blocks[i]:
+            self.block_pool.decref(bid)
+        self.slot_blocks[i] = []
+        self.block_tables[i] = 0
+        self.lengths[i] = 0
+
+    def _sample(self, logits, req: Request) -> np.ndarray:
+        """(B, V) logits -> (B,) host token ids."""
+        toks = sample_tokens(torch.as_tensor(logits), self.generator,
+                             temperature=req.temperature)
+        return toks.cpu().numpy()
+
+    def _emit(self, req: Request, slot: int, tok: int):
+        if req.first_token_time is None:
+            req.first_token_time = self.clock()
+        req.output.append(tok)
+
+    # -- telemetry ----------------------------------------------------------
+
+    def recent_tps(self, window: int = 50) -> float:
+        log = [s for s in self.step_log[-window:] if s["kind"] == "decode"]
+        if not log:
+            return 0.0
+        return sum(s["tokens"] for s in log) / max(sum(s["dt"] for s in log), 1e-9)
+
+
+class EngineClient:
+    """Submission facade over a shared `ServingEngine`: several producers
+    hold clients onto one engine, so their requests share decode steps."""
+
+    def __init__(self, engine: ServingEngine):
+        self.engine = engine
+
+    def submit(self, sreq: SessionRequest) -> RequestHandle:
+        deadline = (None if sreq.deadline_s is None
+                    else self.engine.clock() + sreq.deadline_s)
+        req = Request(rid=self.engine.next_rid(), prompt=list(sreq.prompt),
+                      max_new_tokens=sreq.max_new_tokens, eos_id=sreq.eos_id,
+                      temperature=sreq.temperature, priority=sreq.priority,
+                      deadline=deadline, tier=sreq.tier)
+        return self.engine.submit(req)
+
+    def step(self) -> List[Request]:
+        return self.engine.step()
+
+    def settle(self, handles: List[RequestHandle], *,
+               max_steps: int = 100000) -> List[RequestHandle]:
+        """Run the shared engine until every handle is terminal."""
+        for _ in range(max_steps):
+            if all(h.done() for h in handles):
+                return handles
+            if not self.engine.has_work():
+                break
+            self.engine.step()
+        if not all(h.done() for h in handles):
+            raise EngineStallError(
+                f"{sum(not h.done() for h in handles)} session(s) not "
+                f"terminal after {max_steps} steps "
+                f"(active={self.engine.active}, "
+                f"waiting={len(self.engine.pending)})")
+        return handles

@@ -1,0 +1,79 @@
+"""The port's kernels on the card against their plain versions, at small
+shapes. Marked `gpu`: without a CUDA card they skip (run them on the card
+with `python -m pytest -q -m gpu tests/test_torch_gpu.py`). chip_smoke.py
+holds every kernel against its plain version at the full-width shapes."""
+import math
+
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.quant_matmul import ops as qm_ops
+from repro_torch.quant.qtensor import quantize
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def gen():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.Generator(device="cuda").manual_seed(0)
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4"])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 64), (4, 512, 512),
+                                   (37, 384, 1024)])
+def test_quant_matmul_kernel(gen, fmt, M, K, N):
+    w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
+    t = quantize(w, fmt)
+    x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    before = kernels.launch_counts()[f"{fmt}_matmul"]
+    got = qm_ops.quant_matmul(x, t)
+    want = qm_ops.plain(x, t)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()[f"{fmt}_matmul"] == before + 1
+    rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert rel.item() < 0.02
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (20, 30.0)])
+def test_paged_attention_kernel(gen, int8, window, cap):
+    from repro_torch.models.transformer import requant_cache
+    B, K, G, H, bs, nb = 3, 2, 4, 64, 16, 12
+    q = torch.randn((B, 1, K * G, H), generator=gen, device="cuda").bfloat16()
+    kf = torch.randn((B * nb + 1, bs, K, H), generator=gen, device="cuda")
+    vf = torch.randn((B * nb + 1, bs, K, H), generator=gen, device="cuda")
+    bt = (torch.arange(B * nb, device="cuda", dtype=torch.int32)
+          .reshape(B, nb) + 1)
+    bt[0] = 0                                       # dead row on scratch
+    lens = torch.tensor([1, 130, 192], dtype=torch.int32, device="cuda")
+    if int8:
+        enc = requant_cache({"k_scale": True}, kf, vf)
+        kp, vp, kw = enc["k"], enc["v"], dict(k_scale=enc["k_scale"],
+                                              v_scale=enc["v_scale"])
+    else:
+        kp, vp, kw = kf.bfloat16(), vf.bfloat16(), {}
+    got = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, cap=cap,
+                                        window=window, num_splits=2, **kw)
+    want = pa_ops.paged_attention_ref(q, kp, vp, bt, lens, cap=cap,
+                                      window=window, **kw)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() < 0.03
+
+
+@pytest.mark.parametrize("Sq,Skv,window,cap", [(32, 32, 0, 0.0),
+                                               (40, 100, 24, 50.0)])
+def test_flash_attention_kernel(gen, Sq, Skv, window, cap):
+    q = torch.randn((2, Sq, 8, 128), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((2, Skv, 2, 128), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((2, Skv, 2, 128), generator=gen, device="cuda").bfloat16()
+    got = fa_ops.flash_attention(q, k, v, window=window, cap=cap,
+                                 q_offset=Skv - Sq)
+    want = fa_ops.flash_attention_ref(q, k, v, window=window, cap=cap,
+                                      q_offset=Skv - Sq)
+    torch.cuda.synchronize()
+    assert (got.float() - want.float()).abs().max().item() < 0.03

@@ -1,0 +1,144 @@
+"""The port stands alone: every `repro_torch` module imports with jax made
+unimportable, and no file of the port (nor chip_smoke.py) imports jax or
+anything of `repro`. Also the port's CPU-side guards: the weight bridge keeps
+bf16 bits, the engine refuses what is not ported yet and a CUDA device
+without a card, and chip_smoke.py prints no result without a card."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.bridge import from_storable, params_from_numpy
+from repro_torch.common.registry import get_arch
+from repro_torch.config import RuntimeConfig
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.models import get_model
+from repro_torch.serving import ServingEngine, SpecDecodeConfig
+from repro_torch.sharding.param import init_params
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+PORT = REPO / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        rel = path.relative_to(REPO / "src").with_suffix("")
+        parts = list(rel.parts)
+        if parts[-1] == "__init__":
+            parts = parts[:-1]
+        mods.append(".".join(parts))
+    return mods
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(REPO / "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return env
+
+
+def test_every_module_imports_without_jax():
+    mods = _port_modules()
+    assert "repro_torch.serving.engine" in mods and len(mods) > 25
+    script = ("import importlib, sys\n"
+              "sys.modules['jax'] = None\n"
+              "sys.modules['repro'] = None\n"
+              f"for m in {mods!r}:\n"
+              "    importlib.import_module(m)\n"
+              "assert not any(k == 'jax' or k.startswith('jax.') "
+              "for k, v in sys.modules.items() if v is not None)\n"
+              "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", script], env=_env(),
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(encoding="utf-8"))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_no_jax_or_reference_imports():
+    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for name in _imports(path):
+            root = name.split(".")[0]
+            if root in ("jax", "jaxlib", "repro", "flax", "ml_dtypes"):
+                bad.append(f"{path.relative_to(REPO)}: {name}")
+    assert bad == []
+
+
+def test_bridge_keeps_bf16_bits():
+    rng = np.random.default_rng(0)
+    t = torch.as_tensor(rng.standard_normal((5, 7)),
+                        dtype=torch.float32).bfloat16()
+    arr = t.view(torch.int16).numpy().view(np.uint16)
+    assert torch.equal(from_storable(arr, "bfloat16"), t)
+    tree = params_from_numpy({"a": (arr, "bfloat16"),
+                              "b": {"c": np.arange(4, dtype=np.int8)}})
+    assert tree["a"].dtype == torch.bfloat16 and torch.equal(tree["a"], t)
+    assert tree["b"]["c"].dtype == torch.int8
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+    params = init_params(get_model(cfg).param_spec(),
+                         torch.Generator().manual_seed(0), "cpu")
+    return cfg, params
+
+
+@pytest.mark.parametrize("kw", [
+    {"prefill_chunk": 32}, {"spec_decode": SpecDecodeConfig()},
+    {"kv_layout": "dense"}, {"mesh": object()}])
+def test_engine_refuses_unported_options(tiny, kw):
+    cfg, params = tiny
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(cfg, params, RuntimeConfig(), device="cpu", **kw)
+
+
+def test_engine_on_cuda_needs_a_card(tiny):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the guard is for hosts without")
+    cfg, params = tiny
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ServingEngine(cfg, params, RuntimeConfig())
+
+
+def test_int8_pool_autosizes_to_the_bf16_budget(tiny):
+    cfg, params = tiny
+    n = {kv: ServingEngine(cfg, params, RuntimeConfig(kv_cache_dtype=kv),
+                           device="cpu").block_pool.num_blocks
+         for kv in ("bf16", "int8")}
+    H = cfg.resolved_head_dim
+    assert n["int8"] - 1 == ((n["bf16"] - 1) * 2 * H) // (H + 4)
+
+
+def test_chip_smoke_refuses_without_a_card(tmp_path):
+    """No card: exit non-zero, no result line. Alone in a directory (no
+    src/repro_torch beside it): the same."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:
+            shutil.copy(REPO / "chip_smoke.py", script)
+        proc = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout

@@ -1,0 +1,156 @@
+"""Each kernel's plain PyTorch version (what a CPU tensor takes in the port's
+wrappers) against the JAX package's oracle (`kernels/*/ref.py`) and its
+Pallas kernel in interpret mode, on the same numpy inputs.
+
+Tolerances are those of tests/test_kernels.py: quant-matmul relative < 0.02,
+flash < 0.03, paged f32 pools < 2e-5, paged int8 pools < 0.02.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import ops as ref_fa_ops
+from repro.kernels.flash_attention import ref as ref_fa_ref
+from repro.kernels.paged_attention import ops as ref_pa_ops
+from repro.kernels.paged_attention import ref as ref_pa_ref
+from repro.kernels.quant_matmul import ops as ref_qm_ops
+from repro.kernels.quant_matmul import ref as ref_qm_ref
+from repro.quant import quantize as ref_quantize
+
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.paged_attention import ops as pa_ops
+from repro_torch.kernels.quant_matmul import ops as qm_ops
+from repro_torch.quant.qtensor import QTensor
+
+
+def _rel(got, want):
+    g = np.asarray(got, np.float32)
+    w = np.asarray(want, np.float32)
+    return float(np.max(np.abs(g - w)) / max(np.max(np.abs(w)), 1e-6))
+
+
+def _bf16_pair(a):
+    """The same bf16 values on both sides."""
+    t = torch.as_tensor(a, dtype=torch.float32).bfloat16()
+    return t, jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4"])
+@pytest.mark.parametrize("M,K,N", [(8, 256, 256), (128, 384, 128)])
+def test_quant_matmul_plain(fmt, M, K, N):
+    rng = np.random.default_rng(M * 7 + K + N + (fmt == "q4"))
+    x_t, x_j = _bf16_pair(rng.standard_normal((M, K)))
+    w = (rng.standard_normal((K, N)) * 0.05).astype(np.float32)
+    qt = ref_quantize(jnp.asarray(w), fmt)
+    pt = QTensor(q=torch.tensor(np.asarray(qt.q)),
+                 scale=torch.tensor(np.asarray(qt.scale)),
+                 zero=None if qt.zero is None
+                 else torch.tensor(np.asarray(qt.zero)),
+                 fmt=qt.fmt, group=qt.group)
+    got = qm_ops.quant_matmul(x_t, pt)
+    assert got.dtype == torch.bfloat16 and got.shape == (M, N)
+    got = got.float().numpy()
+    assert _rel(got, ref_qm_ref.qtensor_matmul_ref(x_j, qt)) < 0.02
+    assert _rel(got, ref_qm_ops.quant_matmul(x_j, qt, interpret=True)) < 0.02
+
+
+@pytest.mark.parametrize(
+    "B,Sq,Skv,N,K,H,causal,window,cap",
+    [
+        (1, 128, 128, 8, 8, 32, True, 48, 50.0),    # window + softcap
+        (2, 64, 128, 4, 1, 32, True, 0, 0.0),       # q_offset, MQA
+    ])
+def test_flash_attention_plain(B, Sq, Skv, N, K, H, causal, window, cap):
+    rng = np.random.default_rng(Sq * Skv + N)
+    q_t, q_j = _bf16_pair(rng.standard_normal((B, Sq, N, H)))
+    k_t, k_j = _bf16_pair(rng.standard_normal((B, Skv, K, H)))
+    v_t, v_j = _bf16_pair(rng.standard_normal((B, Skv, K, H)))
+    off = Skv - Sq
+    got = fa_ops.flash_attention(q_t, k_t, v_t, causal=causal, window=window,
+                                 cap=cap, q_offset=off).float().numpy()
+    want = ref_fa_ref.flash_attention_ref(q_j, k_j, v_j, causal=causal,
+                                          window=window, cap=cap, q_offset=off)
+    pallas = ref_fa_ops.flash_attention(q_j, k_j, v_j, causal=causal,
+                                        window=window, cap=cap, q_offset=off,
+                                        interpret=True)
+    for other in (want, pallas):
+        assert float(np.max(np.abs(got - np.asarray(other, np.float32)))) < 0.03
+
+
+def _paged_case(B, N, K, H, bs, nb, seed, lengths):
+    """f32 pools, permuted block tables; unused table slots point at the
+    scratch block 0."""
+    rng = np.random.default_rng(seed)
+    num_blocks = nb * B + 2
+    q = rng.standard_normal((B, 1, N, H)).astype(np.float32)
+    kp = rng.standard_normal((num_blocks, bs, K, H)).astype(np.float32)
+    vp = rng.standard_normal((num_blocks, bs, K, H)).astype(np.float32)
+    bt = np.zeros((B, nb), np.int32)
+    perm = rng.permutation(np.arange(1, num_blocks))
+    for b in range(B):
+        used = -(-int(lengths[b]) // bs)
+        bt[b, :used] = perm[b * nb:b * nb + used]
+    return q, kp, vp, bt, np.asarray(lengths, np.int32)
+
+
+def _int8(pool):
+    """Symmetric per-(block, pos, head) int8, as requant_cache encodes."""
+    s = np.maximum(np.max(np.abs(pool), axis=-1), 1e-8) / 127.0
+    return np.round(pool / s[..., None]).astype(np.int8), s.astype(np.float32)
+
+
+# lengths cross the 8-block split boundary (bs * 8 = 128) and include a row
+# parked on the scratch block (length 1)
+PAGED = [
+    (4, 4, 2, 64, 16, 16, [1, 100, 129, 256], 0.0, 0),
+    (3, 8, 2, 32, 16, 9, [144, 17, 140], 30.0, 24),  # softcap, window,
+]                                                    # ragged last split
+
+
+@pytest.mark.parametrize("B,N,K,H,bs,nb,lengths,cap,window", PAGED)
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_plain(B, N, K, H, bs, nb, lengths, cap, window,
+                               int8):
+    q, kp, vp, bt, lens = _paged_case(B, N, K, H, bs, nb, B * 31 + nb,
+                                      lengths)
+    kw_ref, kw = {}, {}
+    if int8:
+        kp, ks = _int8(kp)
+        vp, vs = _int8(vp)
+        kw_ref = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        kw = dict(k_scale=torch.as_tensor(ks), v_scale=torch.as_tensor(vs))
+    splits = pa_ops.default_num_splits(nb)
+    got = pa_ops.paged_decode_attention(
+        torch.as_tensor(q), torch.as_tensor(kp), torch.as_tensor(vp),
+        torch.as_tensor(bt), torch.as_tensor(lens), cap=cap, window=window,
+        num_splits=splits, **kw).numpy()
+    want = ref_pa_ref.paged_attention_ref(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), cap=cap, window=window, **kw_ref)
+    pallas = ref_pa_ops.paged_decode_attention(
+        jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(bt),
+        jnp.asarray(lens), cap=cap, window=window, num_splits=splits,
+        interpret=True, **kw_ref)
+    tol = 0.02 if int8 else 2e-5
+    assert np.all(np.isfinite(got))
+    for other in (want, pallas):
+        assert float(np.max(np.abs(got - np.asarray(other)))) < tol
+
+
+def test_split_counts_and_fallback_predicate():
+    assert [pa_ops.default_num_splits(n) for n in (1, 8, 9, 16, 17)] == \
+        [ref_pa_ops.default_num_splits(n) for n in (1, 8, 9, 16, 17)]
+    assert pa_ops.paged_attention_uses_fallback("cpu")
+    assert not pa_ops.paged_attention_uses_fallback("cuda")
+
+
+def test_split_k_choice():
+    """Chunks are group multiples, no split is empty, and small-N weights
+    get enough blocks for two waves."""
+    for M, K, N, quantum in [(4, 3584, 512, 128), (4, 18944, 3584, 1),
+                             (512, 3584, 152064, 128), (4, 64, 16, 1)]:
+        splits, chunk = qm_ops.split_k(M, K, N, quantum, sms=132)
+        assert chunk % quantum == 0
+        assert (splits - 1) * chunk < K <= splits * chunk
+    assert qm_ops.split_k(4, 3584, 512, 128, sms=132)[0] == 28
