@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
-    python3 chip_smoke.py            # build, check every kernel, serve
+    python3 chip_smoke.py            # build, check every kernel, serve, run
 
 Phases, each raising on its first fault (the script then exits non-zero):
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
@@ -17,7 +17,24 @@ Phases, each raising on its first fault (the script then exits non-zero):
                launch counters are set to 0 just before it and read just
                after, and every kernel that path runs must have launched; no
                step may fall back, and the invariant sweep must be clean.
-The line before the last is the `kernels` JSON record; the last line is
+  5. runtime — the CarbonCall runtime end to end on the card: `run_week` over
+               a carbon-intensity ramp (clean grid, then 900 gCO2/kWh) with
+               the carboncall policy; tool selection (`ToolSelector`, its
+               index on the card) retrieves through the sim_scores kernel,
+               the governor drops into the low-power modes, the switcher
+               swaps Q8 -> Q4 live, and `EngineExecutor` serves every query
+               on full-width carboncall-qwen2-7b. Counters are set to 0 just
+               before the run and read just after: sim_scores must launch
+               once per retrieval and the four model kernels must launch; no
+               step may fall back, the invariant sweep must be clean, every
+               record must have tps > 0 and both variants must appear.
+               Seconds, joules and carbon of the records come from the
+               virtual clock and the Orin power model, not from the card.
+The kernel check of phase 3 includes sim_scores, at the runtime's index
+(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 3 and 8 sentences) and
+at N = 65536, held to 1e-5 with the same top 16 and top 32.
+The line before the last is the `kernels` JSON record (launches summed over
+the main paths of phases 4 and 5); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -33,6 +50,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (data sheet)
 BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
+F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 QM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
              (3584, 152064)]    # (K, N): wq/wo, wk/wv, wg/wu, down, lm_head
 QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
@@ -44,18 +62,28 @@ QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
 PAGED_BF16_TOL = 1e-3
 PAGED_INT8_TOL = 1e-2
 FLASH_TOL = 0.03
+SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
+SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (65536, 1), (65536, 3),
+              (65536, 8)]       # (N, m) at d = 256; N = 256 is the runtime's
+# runtime phase: a clean grid, then a dirty one, 10-minute steps
+RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
+RUNTIME_QPH = 18.0
 REPLACES = {
     "q8_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:56",
     "q4_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:108",
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:138",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:93",
+    "sim_scores": "src/repro/kernels/topk_sim/topk_sim.py:34",
 }
 SOURCES = {
     "q8_matmul": "src/repro_torch/csrc/quant_matmul.cu",
     "q4_matmul": "src/repro_torch/csrc/quant_matmul.cu",
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "sim_scores": "src/repro_torch/csrc/topk_sim.cu",
 }
+MODEL_KERNELS = ("q8_matmul", "q4_matmul", "paged_attention",
+                 "flash_attention")
 
 
 def fail(msg: str, code: int = 1):
@@ -294,6 +322,74 @@ def check_flash(records):
             rec.bound_ms, rec.bound_by = b, by
 
 
+def _sim_inputs(g, N, m, d=256, pad=16):
+    """Unit tool rows with `pad` zero rows at the end (the index padding) and
+    raw query rows, as the selector hands them over."""
+    import torch
+    tools = torch.nn.functional.normalize(
+        torch.randn((N, d), generator=g, device="cuda"), dim=-1)
+    tools[N - pad:] = 0.0
+    q = torch.randn((m, d), generator=g, device="cuda")
+    return tools.contiguous(), q
+
+
+def kernel_device_ms(fn, key: str, n: int = 50):
+    """Mean device time per launch of the kernels whose name holds `key`, from
+    torch.profiler over `n` launches: unlike CUDA events around back-to-back
+    launches, it leaves out the host's time to issue them, which bounds a
+    kernel shorter than that."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if key in e.key)
+    return us / 1e3 / n if us > 0 else float("nan")
+
+
+def check_sim_scores(records):
+    """sim_scores at the runtime's index (N = 256 with 240 tools) and at
+    N = 65536, for m = 1, 3 and 8 sentences: scores within SIM_TOL and the
+    same top 16 and top 32 (ties by lower index) as the plain version. The
+    kernels line reports N = 256, m = 1, the runtime's commonest retrieval."""
+    import torch
+    from repro_torch.kernels.topk_sim import ops as ts
+    rec = records["sim_scores"]
+    g = torch.Generator(device="cuda").manual_seed(4)
+    for N, m in SIM_SHAPES:
+        tools, q_raw = _sim_inputs(g, N, m)
+        q = ts._normalize(q_raw)
+        got = ts.launch(tools, q)
+        want = ts.sim_scores_ref(tools, q)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        same_topk = all(ts.top_k(got, k)[1].tolist()
+                        == ts.top_k(want, k)[1].tolist() for k in (16, 32))
+        ok = bool(torch.isfinite(got).all().item()) and err <= SIM_TOL \
+            and same_topk
+        ms = time_ms(lambda: ts.launch(tools, q), iters=100)
+        pms = time_ms(lambda: ts.sim_scores_ref(tools, q), iters=100)
+        lms = time_ms(lambda: torch.matmul(tools, q.T).amax(1), iters=100)
+        dev_ms = kernel_device_ms(lambda: ts.launch(tools, q),
+                                  "sim_scores_kernel")
+        d = tools.shape[1]
+        nbytes = 4 * (N * d + m * d + N)
+        b, by = bound_ms(nbytes, 2.0 * N * d * m, F32_FLOPS)
+        log(f"  sim_scores N={N} d={d} m={m}: max_abs_err={err:.2e} "
+            f"(tol {SIM_TOL}) top16/32 {'equal' if same_topk else 'DIFFER'} "
+            f"ms={ms:.5f} device_ms={dev_ms:.5f} plain_ms={pms:.5f} "
+            f"matmul_amax_ms={lms:.5f} "
+            f"bound_ms={b:.6f} ({by}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"sim_scores N={N} m={m} err {err} top-k equal {same_topk}")
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        if (N, m) == (256, 1):
+            rec.ms, rec.plain_ms, rec.library_ms = ms, pms, lms
+            rec.bound_ms, rec.bound_by = b, by
+
+
 # ---------------------------------------------------------------------------
 # 4. serving at full width
 # ---------------------------------------------------------------------------
@@ -468,7 +564,7 @@ def phase_serve():
     prompts = _requests(0, cfg.vocab_size)
     per_path = [
         serve_once(cfg, variants, "bf16", prompts, 8, swap_at=12,
-                   label="bf16-KV q8->q4", expect=kernels.KERNELS),
+                   label="bf16-KV q8->q4", expect=MODEL_KERNELS),
         serve_once(cfg, variants, "int8", prompts, 8, swap_at=None,
                    label="int8-KV q8", expect=("q8_matmul", "paged_attention",
                                                "flash_attention")),
@@ -478,7 +574,123 @@ def phase_serve():
     times = {}
     for fmt in ("q8", "q4"):
         times[fmt] = decode_step_ms(cfg, variants[fmt], "bf16", fmt)
+    del variants
+    torch.cuda.empty_cache()
     return launches, times
+
+
+# ---------------------------------------------------------------------------
+# 5. the CarbonCall runtime end to end
+# ---------------------------------------------------------------------------
+
+
+def phase_runtime(device="cuda", model_cfg=None):
+    """`run_week` with the carboncall policy over a clean-then-dirty CI ramp,
+    every query selected by `ToolSelector` and served by `EngineExecutor`
+    (full-width carboncall-qwen2-7b unless `model_cfg` says otherwise). The
+    launch counters are set to 0 just before the run and read just after.
+    Returns this path's counts."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.hardware import ORIN_AGX
+    from repro_torch.common.registry import get_arch
+    from repro_torch.core import (ORIN_MODES, PAPER_MODELS, POLICIES,
+                                  CarbonCallRuntime, EngineExecutor,
+                                  ToolSelector, run_week)
+    from repro_torch.data.workload import FunctionCallWorkload, build_catalog
+    from repro_torch.serving import check_invariants
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = model_cfg if model_cfg is not None \
+        else get_arch("carboncall-qwen2-7b")
+    t0 = time.perf_counter()
+    ex = EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX, model_cfg=cfg,
+                        seed=0, device=device)
+    catalog = build_catalog(240, seed=0)
+    sel = ToolSelector(catalog, seed=0, device=device)
+    rt = CarbonCallRuntime(selector=sel, executor=ex,
+                           policy=POLICIES["carboncall"], modes=ORIN_MODES,
+                           catalog_size=len(catalog.tools), seed=0)
+    sync()
+    log(f"runtime: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
+        f"q8+q4 weights and a {tuple(sel.index.shape)} tool index made on "
+        f"{device} in {time.perf_counter() - t0:.1f} s (host clock)")
+    # count what the path does, beside the kernels' own counters, and the
+    # host time of tool selection (it ends in a copy to the host, so the
+    # host clock around it includes its device work)
+    retrievals, requests, select_s = [0], [], [0.0]
+    retrieve, select, submit = sel.retrieve, sel.select, ex.engine.submit
+
+    def counted_retrieve(query):
+        retrievals[0] += 1
+        return retrieve(query)
+
+    def timed_select(query):
+        t = time.perf_counter()
+        out = select(query)
+        select_s[0] += time.perf_counter() - t
+        return out
+
+    def recorded_submit(req):
+        requests.append(req)
+        return submit(req)
+
+    sel.retrieve, sel.select = counted_retrieve, timed_select
+    ex.engine.submit = recorded_submit
+    ci = np.array([RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY)
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_week(rt, FunctionCallWorkload(catalog, seed=3), ci,
+                   queries_per_hour=RUNTIME_QPH, seed=0)
+    sync()
+    host_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    recs = res.records
+    eng = ex.engine
+    modes = {i + 1: sum(r.mode_idx == i for r in recs)
+             for i in range(len(ORIN_MODES))}
+    mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
+    log(f"  runtime: {len(recs)} queries served in {host_s:.1f} s host clock; "
+        f"mode residency (queries per mode) {modes}; variant mix {mix}; "
+        f"swap_count={ex.swap_count}; {eng.tokens_emitted} tokens decoded; "
+        f"{retrievals[0]} retrievals; {len(requests)} engine requests; "
+        f"kernel_fallbacks={eng.kernel_fallbacks}; launches={launches}")
+    kinds = [e["kind"] for e in eng.step_log]
+    log(f"  runtime, host clock: tool selection {select_s[0]:.3f} s "
+        f"({1e3 * select_s[0] / max(len(recs), 1):.2f} ms per query), the "
+        f"rest {host_s - select_s[0]:.1f} s over {kinds.count('decode')} "
+        f"decode and {len(kinds) - kinds.count('decode')} prefill steps")
+    log(f"  runtime, virtual clock, Orin power model (not measured on the "
+        f"card): mean latency {res.avg_latency:.3f} s, mean energy "
+        f"{np.mean([r.energy_j for r in recs]):.2f} J, mean carbon "
+        f"{1e3 * res.avg_carbon:.4f} mg per query, mean TPS "
+        f"{res.avg_tps:.2f}, success {res.success_rate:.3f}")
+    if not recs:
+        fail("runtime: no query served")
+    if any(not r.tps > 0 for r in recs):
+        fail("runtime: a record has tps <= 0")
+    if mix["q8"] == 0 or mix["q4"] == 0 or ex.swap_count < 1:
+        fail(f"runtime: no live Q8 -> Q4 swap (mix {mix}, "
+             f"swap_count {ex.swap_count})")
+    if max(r.mode_idx for r in recs) < len(ORIN_MODES) - 2:
+        fail(f"runtime: the governor never reached a low-power mode {modes}")
+    errs = check_invariants(eng, requests)
+    if errs:
+        fail(f"runtime: invariant violations: {errs}")
+    if device == "cuda":
+        if eng.kernel_fallbacks != 0:
+            fail(f"runtime: kernel_fallbacks = {eng.kernel_fallbacks}")
+        if launches["sim_scores"] != retrievals[0] or retrievals[0] <= 0:
+            fail(f"runtime: sim_scores launched {launches['sim_scores']} "
+                 f"times for {retrievals[0]} retrievals")
+        idle = [k for k in MODEL_KERNELS if launches[k] <= 0]
+        if idle:
+            fail(f"runtime: kernels never launched on this path: {idle}")
+    del ex, sel, rt, eng
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
 
 
 def main():
@@ -497,7 +709,12 @@ def main():
     check_quant_matmul(records, timed_m=4)
     check_paged(records)
     check_flash(records)
-    launches, _ = phase_serve()
+    check_sim_scores(records)
+    serve_launches, _ = phase_serve()
+    runtime_launches = phase_runtime()
+    launches = {k: serve_launches[k] + runtime_launches[k]
+                for k in kernels.KERNELS}
+    log(f"main-path launches, serve and runtime summed: {launches}")
     log(json.dumps({"kernels": [records[k].to_json(launches[k])
                                 for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ kernel was actually launched, so a run can show that its main path went
 through the kernels."""
 from typing import Dict
 
-KERNELS = ("q8_matmul", "q4_matmul", "paged_attention", "flash_attention")
+KERNELS = ("q8_matmul", "q4_matmul", "paged_attention", "flash_attention",
+           "sim_scores")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 

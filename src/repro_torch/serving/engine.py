@@ -34,6 +34,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.config import ModelConfig, RuntimeConfig
 from repro_torch.kernels.paged_attention.ops import \
     paged_attention_uses_fallback
@@ -105,13 +106,25 @@ def _pow2(n: int, cap: int) -> int:
     return min(p, cap)
 
 
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ServingEngine: device='cuda' but no CUDA card is visible; pass "
-            "device='cpu' to run the plain versions on the CPU")
-    return dev
+def refuse_unported(config: EngineConfig, mesh=None):
+    """Raise NotImplementedError, naming the ROADMAP item, for an engine
+    configuration the port does not serve yet."""
+    if config.prefill_chunk is not None:
+        raise NotImplementedError(
+            "prefill_chunk: chunked prefill is not ported yet "
+            "(ROADMAP Queue 1 item 4, step 2)")
+    if config.spec_decode is not None:
+        raise NotImplementedError(
+            "spec_decode: speculative decoding is not ported yet "
+            "(ROADMAP Queue 1 item 4, step 3)")
+    if config.kv_layout == "dense":
+        raise NotImplementedError(
+            "kv_layout='dense' is not ported yet (ROADMAP Queue 1 "
+            "item 4, step 5)")
+    if mesh is not None or config.data_shards > 1:
+        raise NotImplementedError(
+            "mesh / data_shards > 1: the data-parallel engine is not "
+            "ported yet (ROADMAP Queue 1 item 9)")
 
 
 class ServingEngine:
@@ -142,22 +155,7 @@ class ServingEngine:
         if prompt_buckets is not None:
             over["prompt_buckets"] = tuple(prompt_buckets)
         self.config = config = base.replace(**over) if over else base
-        if config.prefill_chunk is not None:
-            raise NotImplementedError(
-                "prefill_chunk: chunked prefill is not ported yet "
-                "(ROADMAP Queue 1 item 4, step 2)")
-        if config.spec_decode is not None:
-            raise NotImplementedError(
-                "spec_decode: speculative decoding is not ported yet "
-                "(ROADMAP Queue 1 item 4, step 3)")
-        if config.kv_layout == "dense":
-            raise NotImplementedError(
-                "kv_layout='dense' is not ported yet (ROADMAP Queue 1 "
-                "item 4, step 5)")
-        if mesh is not None or config.data_shards > 1:
-            raise NotImplementedError(
-                "mesh / data_shards > 1: the data-parallel engine is not "
-                "ported yet (ROADMAP Queue 1 item 9)")
+        refuse_unported(config, mesh)
         if config.kv_layout not in ("auto", "paged"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
                              "expected 'auto' or 'paged'")
@@ -174,7 +172,7 @@ class ServingEngine:
             rcfg = dataclasses.replace(rcfg, kv_cache_dtype=kv_dtype)
         if kv_dtype != config.kv_cache_dtype:
             self.config = config = config.replace(kv_cache_dtype=kv_dtype)
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device, "ServingEngine")
         self.cfg = cfg
         self.rcfg = rcfg
         self.model = get_model(cfg)

@@ -11,9 +11,11 @@ from repro_torch import kernels
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant_matmul import ops as qm_ops
+from repro_torch.kernels.topk_sim import ops as ts_ops
 from repro_torch.quant.qtensor import quantize
 
 pytestmark = pytest.mark.gpu
+SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
 
 
 @pytest.fixture
@@ -77,3 +79,33 @@ def test_flash_attention_kernel(gen, Sq, Skv, window, cap):
                                       q_offset=Skv - Sq)
     torch.cuda.synchronize()
     assert (got.float() - want.float()).abs().max().item() < 0.03
+
+
+@pytest.mark.parametrize("N,d,m,k", [(256, 256, 1, 16), (256, 256, 3, 32),
+                                     (1024, 256, 8, 16), (512, 64, 5, 8),
+                                     (65536, 256, 8, 32), (300, 63, 32, 16)])
+def test_sim_scores_kernel(gen, N, d, m, k):
+    """Scores within SIM_TOL and the same top k (ties by lower index) as the
+    plain version; the last 16 rows are zero index padding, and most rows
+    point away from the queries so those exact 0.0 scores reach the top k.
+    d = 63 takes the scalar-load variant."""
+    q = torch.nn.functional.normalize(
+        torch.randn((m, d), generator=gen, device="cuda"), dim=-1)
+    tools = torch.nn.functional.normalize(
+        torch.randn((N, d), generator=gen, device="cuda"), dim=-1)
+    away = torch.rand((N,), generator=gen, device="cuda") < 0.9
+    tools[away] = torch.nn.functional.normalize(
+        -q.sum(0) + 0.5 / math.sqrt(d) * torch.randn(
+            (int(away.sum()), d), generator=gen, device="cuda"), dim=-1)
+    tools[N - 16:] = 0.0
+    before = kernels.launch_counts()["sim_scores"]
+    got = ts_ops.sim_scores(tools, q)
+    want = ts_ops.sim_scores_ref(tools, q)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sim_scores"] == before + 1
+    assert (got - want).abs().max().item() <= SIM_TOL
+    g_s, g_i = ts_ops.top_k(got, k)
+    w_s, w_i = ts_ops.top_k(want, k)
+    assert g_i.tolist() == w_i.tolist()
+    s_raw, i_raw = ts_ops.topk_tools(tools, 3.0 * q, k=k)
+    assert i_raw.tolist() == w_i.tolist()

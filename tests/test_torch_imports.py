@@ -63,6 +63,22 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_core_import_builds_nothing():
+    """`import repro_torch.core` loads no kernel library, makes no weights
+    and does not start CUDA."""
+    script = ("import torch\n"
+              "import repro_torch.core\n"
+              "from repro_torch.kernels import build\n"
+              "assert build._LIBS == {}, build._LIBS\n"
+              "assert not torch.cuda.is_initialized()\n"
+              "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", script], env=_env(),
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def _imports(path):
     tree = ast.parse(path.read_text(encoding="utf-8"))
     for node in ast.walk(tree):

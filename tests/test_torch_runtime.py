@@ -1,0 +1,372 @@
+"""The port's CarbonCall runtime against the JAX package's, on the CPU.
+
+  * the framework-neutral modules, exactly: CI traces and forecasts, the
+    governor's mode path, the variant switcher's decisions, the power model
+    and the workload generator;
+  * `run_week(backend="sim")` over a full week, for the carboncall policy and
+    a baseline, run by both packages in this process: the query records are
+    equal field for field (the analytic backend is pure Python and numpy);
+  * `run_week(backend="engine")` on the reduced carboncall-qwen2-7b over a
+    carbon-intensity ramp that makes the switcher swap Q8 -> Q4. The
+    reference runs in a subprocess (`sys.executable -c`, JAX_PLATFORMS=cpu):
+    building a reference `ServingEngine` in this process would change what
+    later tests in the same worker see. It writes its `init_encoder(0)`
+    weights and its records as files; the port runs on the CPU with those
+    encoder weights bridged in and its own engine weights. With `eos_id=-1`
+    and a fixed token budget no compared quantity depends on token values,
+    so served count, per-record variant / mode / tool count / success / tier,
+    `swap_count` and the engine's step log must be equal, and latency,
+    energy, carbon and TPS equal within ENGINE_REL_TOL;
+  * the port's entry points run on the card by default and refuse what is
+    not ported yet.
+"""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro.core as RC
+from repro.common.hardware import ORIN_AGX as REF_ORIN
+from repro.data import workload as RW
+
+import repro_torch.core as PC
+from repro_torch.bridge import params_from_numpy
+from repro_torch.common.hardware import ORIN_AGX, HardwareSpec
+from repro_torch.data import workload as PW
+from repro_torch.serving import (EngineConfig, SpecDecodeConfig,
+                                 check_invariants)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# latency, energy, carbon and TPS: the same Python arithmetic on the same
+# step log in both packages
+ENGINE_REL_TOL = 1e-9
+PROFILE = "qwen2-7b"
+SIM_QPH = 2.0                   # a full week of arrivals: ~350 queries
+# engine week: clean grid, then a dirty one; 12 queries an hour
+RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 3, 4, (100.0, 900.0)
+ENGINE_QPH = 12.0
+
+
+def _ramp():
+    return np.array([RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY)
+
+
+def _to_numpy(tree):
+    if isinstance(tree, dict):
+        return {k: _to_numpy(v) for k, v in tree.items()}
+    return np.asarray(tree)
+
+
+def _query_key(q):
+    tier = None if q.tier is None else (q.tier.name, q.tier.priority,
+                                        q.tier.deadline_s, q.tier.share)
+    return (q.text, q.sentences, q.true_tools, q.entities, q.difficulty, tier)
+
+
+# ---------------------------------------------------------------------------
+# framework-neutral modules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("week", sorted(RC.WEEKS))
+def test_ci_trace_and_forecast_exact(week):
+    for seed in (0, 3):
+        want = RC.ci_trace(week, seed=seed)
+        got = PC.ci_trace(week, seed=seed)
+        assert np.array_equal(got, want)
+        assert np.array_equal(PC.forecast_trace(got, seed=seed + 1),
+                              RC.forecast_trace(want, seed=seed + 1))
+    short = want[:20]                  # shorter than the smoothing kernel
+    assert np.array_equal(PC.forecast_trace(short), RC.forecast_trace(short))
+
+
+def _mode_path(C, ci, steps_per_day=144):
+    gov = C.CarbonGovernor(C.ORIN_MODES)
+    fc = C.forecast_trace(ci, seed=1)
+    state = gov.init(fc[:steps_per_day])
+    path = []
+    for i in range(len(ci)):
+        if i % steps_per_day == 0:
+            state = gov.update(state, float(ci[i]),
+                               forecast_24h=fc[i:i + steps_per_day])
+        else:
+            state = gov.update(state, float(ci[i]))
+        path.append((state.mode_idx, state.ci_min, state.ci_max,
+                     state.last_ci))
+    return path
+
+
+@pytest.mark.parametrize("week", ["week1", "week3"])
+def test_governor_mode_path_exact(week):
+    ci = RC.ci_trace(week)
+    want = _mode_path(RC, ci)
+    assert _mode_path(PC, ci) == want
+    assert len({p[0] for p in want}) >= 2           # the path moves
+    for n in (1, 5):
+        for idx in range(n):
+            for ladder in ((), (0, 2, 4), (1,)):
+                assert PC.CarbonGovernor.k_for_mode(idx, n, ladder) == \
+                    RC.CarbonGovernor.k_for_mode(idx, n, ladder)
+
+
+def test_switcher_decisions_exact():
+    rng = np.random.default_rng(4)
+    tps = np.concatenate([10 + rng.standard_normal(60),
+                          6 + rng.standard_normal(80),
+                          14 + rng.standard_normal(80)])
+    out = []
+    for C in (RC, PC):
+        sw = C.VariantSwitcher()
+        sw.set_reference(10.0)
+        trace = []
+        for i, v in enumerate(tps):
+            t = 30.0 * i
+            sw.observe(t, float(v))
+            dec = sw.decide(t)
+            sw.apply(t, dec)
+            trace.append((dec.switch_to, dec.reason, dec.avg_tps, sw.variant))
+        out.append(trace)
+    assert out[0] == out[1]
+    assert {v for *_, v in out[1]} == {"q8", "q4"}   # both ways switched
+
+
+def test_power_model_exact():
+    ref_pm, pm = RC.PowerModel(REF_ORIN), PC.PowerModel(ORIN_AGX)
+    assert dataclasses.astuple(ORIN_AGX) == dataclasses.astuple(REF_ORIN)
+    assert [dataclasses.astuple(m) for m in PC.ORIN_MODES] == \
+        [dataclasses.astuple(m) for m in RC.ORIN_MODES]
+    prof = PC.PAPER_MODELS[PROFILE]
+    assert dataclasses.astuple(prof) == \
+        dataclasses.astuple(RC.PAPER_MODELS[PROFILE])
+    for rm, m in zip(RC.ORIN_MODES, PC.ORIN_MODES):
+        for fmt in ("q8", "q4", "bf16"):
+            b = prof.active_bytes(fmt)
+            assert pm.decode_time_per_token(b, 28672.0, m) == \
+                ref_pm.decode_time_per_token(b, 28672.0, rm)
+            assert pm.model_load_time(prof.weight_bytes(fmt), m) == \
+                ref_pm.model_load_time(prof.weight_bytes(fmt), rm)
+        assert pm.prefill_time(210, prof.n_active * 2, m) == \
+            ref_pm.prefill_time(210, prof.n_active * 2, rm)
+        for util in (None, 0.25, 0.7, 0.95, 1.0):
+            assert pm.power(m, util) == ref_pm.power(rm, util)
+    assert PC.carbon_footprint(1234.5, 456.7) == \
+        RC.carbon_footprint(1234.5, 456.7)
+    other = dataclasses.replace(ORIN_AGX, name="h100")
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        PC.modes_for(other)
+    assert isinstance(other, HardwareSpec)
+
+
+@pytest.mark.parametrize("tiers", [None, "default", "interactive:1,batch:3"])
+def test_workload_samples_exact(tiers):
+    def tier_arg(W):
+        if tiers is None:
+            return None
+        return W.DEFAULT_TIERS if tiers == "default" else \
+            W.parse_qos_mix(tiers)
+    want = RW.FunctionCallWorkload(RW.build_catalog(240, seed=0), seed=7,
+                                   tiers=tier_arg(RW)).stream(300)
+    got = PW.FunctionCallWorkload(PW.build_catalog(240, seed=0), seed=7,
+                                  tiers=tier_arg(PW)).stream(300)
+    assert [_query_key(q) for q in got] == [_query_key(q) for q in want]
+    assert [PW.diurnal_qph(30.0, 900.0 * i) for i in range(100)] == \
+        [RW.diurnal_qph(30.0, 900.0 * i) for i in range(100)]
+
+
+# ---------------------------------------------------------------------------
+# run_week, analytic backend
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def selectors():
+    ref_sel = RC.ToolSelector(RW.build_catalog(240, seed=0))
+    enc = _to_numpy(ref_sel.encoder_params)
+    sel = PC.ToolSelector(PW.build_catalog(240, seed=0),
+                          encoder_params=params_from_numpy(enc, "cpu"),
+                          device="cpu")
+    return ref_sel, sel
+
+
+def _sim_week(C, W, sel, hw, policy):
+    rt = C.CarbonCallRuntime(
+        selector=sel, executor=C.SimExecutor(C.PAPER_MODELS[PROFILE], hw,
+                                             seed=0),
+        policy=C.POLICIES[policy], modes=C.ORIN_MODES, catalog_size=240,
+        seed=0)
+    wl = W.FunctionCallWorkload(sel.catalog, seed=3)
+    return C.run_week(rt, wl, C.ci_trace("week4"),
+                      queries_per_hour=SIM_QPH, seed=0)
+
+
+@pytest.mark.parametrize("policy", ["carboncall", "gorilla"])
+def test_run_week_sim_matches_reference(selectors, policy):
+    ref_sel, sel = selectors
+    want = _sim_week(RC, RW, ref_sel, REF_ORIN, policy)
+    got = _sim_week(PC, PW, sel, ORIN_AGX, policy)
+    assert len(want.records) > 300
+    assert [dataclasses.astuple(r) for r in got.records] == \
+        [dataclasses.astuple(r) for r in want.records]
+    assert got.tier_summary() == want.tier_summary()
+    assert {r.mode_idx for r in got.records} != {0}   # governor moved
+
+
+# ---------------------------------------------------------------------------
+# run_week, engine backend (reduced config)
+# ---------------------------------------------------------------------------
+
+REF_SCRIPT = r"""
+import json, sys
+import numpy as np
+import repro.core as C
+from repro.common.hardware import ORIN_AGX
+from repro.data.workload import FunctionCallWorkload, build_catalog
+
+spec = json.loads(open(sys.argv[1]).read())
+out_dir = sys.argv[2]
+cat = build_catalog(240, seed=0)
+sel = C.ToolSelector(cat)
+arrays, meta = {}, {}
+for k, v in sel.encoder_params.items():
+    stack = [(k, v)]
+    while stack:
+        name, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((name + "/" + kk, vv) for kk, vv in node.items())
+            continue
+        a = np.asarray(node)
+        meta[name] = a.dtype.name
+        arrays[name] = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+np.savez(out_dir + "/encoder.npz", **arrays)
+rt = C.CarbonCallRuntime(
+    selector=sel, executor=C.SimExecutor(C.PAPER_MODELS[spec["profile"]],
+                                         ORIN_AGX, seed=0),
+    policy=C.POLICIES["carboncall"], modes=C.ORIN_MODES, catalog_size=240,
+    seed=0)
+res = C.run_week(rt, FunctionCallWorkload(cat, seed=3), np.array(spec["ci"]),
+                 queries_per_hour=spec["qph"], seed=0, backend="engine")
+ex = rt.executor
+json.dump({
+    "meta": meta,
+    "records": [r.__dict__ for r in res.records],
+    "swap_count": ex.swap_count,
+    "ref_tps": rt.switcher.ref_tps,
+    "log": [[s["kind"], list(s["rids"]), s["tokens"], s["variant"],
+             s["prompt_tokens"], s["cached_tokens"], s["dt"]]
+            for s in ex.engine.step_log],
+}, open(out_dir + "/results.json", "w"))
+"""
+
+
+@pytest.fixture(scope="module")
+def engine_reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_runtime")
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps({"profile": PROFILE, "qph": ENGINE_QPH,
+                                     "ci": _ramp().tolist()}))
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-c", REF_SCRIPT, str(spec_path),
+                           str(out)], env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=600)
+    assert proc.returncode == 0, f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
+    data = json.loads((out / "results.json").read_text())
+    arrays = np.load(out / "encoder.npz")
+    enc = {}
+    for name, dtype in data["meta"].items():
+        *head, last = name.split("/")
+        node = enc
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = (arrays[name], dtype) if dtype == "bfloat16" \
+            else arrays[name]
+    return data, params_from_numpy(enc, "cpu")
+
+
+def _rel_close(a, b):
+    return abs(a - b) <= ENGINE_REL_TOL * max(abs(a), abs(b), 1e-30)
+
+
+def test_run_week_engine_matches_reference(engine_reference):
+    data, encoder = engine_reference
+    want = data["records"]
+    assert data["swap_count"] >= 1              # the ramp makes it swap
+    assert {r["variant"] for r in want} == {"q8", "q4"}
+
+    sel = PC.ToolSelector(PW.build_catalog(240, seed=0),
+                          encoder_params=encoder, device="cpu")
+    rt = PC.CarbonCallRuntime(
+        selector=sel, executor=PC.SimExecutor(PC.PAPER_MODELS[PROFILE],
+                                              ORIN_AGX, seed=0),
+        policy=PC.POLICIES["carboncall"], modes=PC.ORIN_MODES,
+        catalog_size=240, seed=0)
+    rt.use_backend("engine", device="cpu")
+    ex = rt.executor
+    assert isinstance(ex, PC.EngineExecutor) and ex.engine.device.type == "cpu"
+    requests, submit = [], ex.engine.submit
+
+    def recorded_submit(req):
+        requests.append(req)
+        return submit(req)
+
+    ex.engine.submit = recorded_submit
+    assert rt.switcher.ref_tps == data["ref_tps"]
+    res = PC.run_week(rt, PW.FunctionCallWorkload(sel.catalog, seed=3),
+                      _ramp(), queries_per_hour=ENGINE_QPH, seed=0,
+                      backend="engine")
+    got = [r.__dict__ for r in res.records]
+
+    assert len(got) == len(want) > 10
+    for g, w in zip(got, want):
+        for key in ("t", "variant", "mode_idx", "n_tools", "succeeded",
+                    "tier"):
+            assert g[key] == w[key], (key, g, w)
+        for key in ("latency_s", "energy_j", "carbon_g", "tps"):
+            assert _rel_close(g[key], w[key]), (key, g, w)
+    assert ex.swap_count == data["swap_count"]
+    log = [[s["kind"], list(s["rids"]), s["tokens"], s["variant"],
+            s["prompt_tokens"], s["cached_tokens"]]
+           for s in ex.engine.step_log]
+    assert log == [s[:6] for s in data["log"]]
+    assert all(_rel_close(s["dt"], w[6])
+               for s, w in zip(ex.engine.step_log, data["log"]))
+    assert {r["mode_idx"] for r in got} >= {0, 4}   # clean and dirty modes
+    assert ex.engine.kernel_fallbacks > 0           # plain versions on CPU
+    assert check_invariants(ex.engine, requests) == []
+
+
+# ---------------------------------------------------------------------------
+# entry points: the card by default; what is not ported yet is refused
+# ---------------------------------------------------------------------------
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable")
+    prof = PC.PAPER_MODELS[PROFILE]
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PC.EngineExecutor(prof, ORIN_AGX)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PC.make_executor("engine", prof, ORIN_AGX)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        PC.ToolSelector(PW.build_catalog(16, seed=0))
+
+
+@pytest.mark.parametrize("config,item", [
+    (EngineConfig(max_batch=2, spec_decode=SpecDecodeConfig()),
+     "Queue 1 item 4"),
+    (EngineConfig(max_batch=2, data_shards=2), "Queue 1 item 9"),
+    (EngineConfig(max_batch=2, prefill_chunk=32), "Queue 1 item 4"),
+])
+def test_executor_refuses_unported_configs(config, item):
+    with pytest.raises(NotImplementedError, match=item):
+        PC.EngineExecutor(PC.PAPER_MODELS[PROFILE], ORIN_AGX, config=config,
+                          device="cpu")
