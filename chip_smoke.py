@@ -17,7 +17,19 @@ Phases, each raising on its first fault (the script then exits non-zero):
                launch counters are set to 0 just before it and read just
                after, and every kernel that path runs must have launched; no
                step may fall back, and the invariant sweep must be clean.
-  5. runtime — the CarbonCall runtime end to end on the card: `run_week` over
+  5. serve_mamba2 — full-width mamba2-370m (random weights drawn from a seed
+               on the CPU, quantized on the card leaf by leaf) served by the
+               dense engine (`kv_layout="auto"`): 8 temperature-0 requests
+               of 8 new tokens with prompts of 32-300 tokens (buckets up to
+               512, so the scan crosses chunk boundaries) and a Q8 -> Q4 hot
+               swap halfway. A main path of its own: counters set to 0 just
+               before, read just after; ssd_bshp, q8_matmul and q4_matmul
+               must launch, no step may fall back, every logits row must be
+               finite and the invariant sweep clean. Then one decode step's
+               time and one S = 512 prefill's time (CUDA events), and that
+               prefill's logits through the kernel against the same prefill
+               through the plain scan.
+  6. runtime — the CarbonCall runtime end to end on the card: `run_week` over
                a carbon-intensity ramp (clean grid, then 900 gCO2/kWh) with
                the carboncall policy; tool selection (`ToolSelector`, its
                index on the card) retrieves through the sim_scores kernel,
@@ -31,10 +43,13 @@ Phases, each raising on its first fault (the script then exits non-zero):
                Seconds, joules and carbon of the records come from the
                virtual clock and the Orin power model, not from the card.
 The kernel check of phase 3 includes sim_scores, at the runtime's index
-(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 3 and 8 sentences) and
-at N = 65536, held to 1e-5 with the same top 16 and top 32.
+(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 3 and 8 sentences, and
+m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
+held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
+shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
+held to 0.05 on y and the final state.
 The line before the last is the `kernels` JSON record (launches summed over
-the main paths of phases 4 and 5); the last line is
+the main paths of phases 4, 5 and 6); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -63,8 +78,17 @@ PAGED_BF16_TOL = 1e-3
 PAGED_INT8_TOL = 1e-2
 FLASH_TOL = 0.03
 SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
-SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (65536, 1), (65536, 3),
+SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (256, 33), (256, 64),
+              (65536, 1), (65536, 3),
               (65536, 8)]       # (N, m) at d = 256; N = 256 is the runtime's
+SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
+# (label, B, S, H, P, G, N) at chunk 128: mamba2-370m, then zamba2-7b's heads
+SSD_SHAPES = [("mamba2-370m", 1, 2048, 32, 64, 1, 128),
+              ("mamba2-370m", 4, 128, 32, 64, 1, 128),
+              ("mamba2-370m", 2, 512, 32, 64, 1, 128),
+              ("mamba2-370m", 4, 512, 32, 64, 1, 128),
+              ("zamba2-7b", 1, 1024, 112, 64, 1, 64)]
+MAMBA_LOGIT_REL = 0.02          # of max |logit| (tests/test_torch_mamba2.py)
 # runtime phase: a clean grid, then a dirty one, 10-minute steps
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
 RUNTIME_QPH = 18.0
@@ -74,6 +98,7 @@ REPLACES = {
     "paged_attention": "src/repro/kernels/paged_attention/paged_attention.py:138",
     "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:93",
     "sim_scores": "src/repro/kernels/topk_sim/topk_sim.py:34",
+    "ssd_bshp": "src/repro/kernels/ssd/ssd.py:65",
 }
 SOURCES = {
     "q8_matmul": "src/repro_torch/csrc/quant_matmul.cu",
@@ -81,6 +106,7 @@ SOURCES = {
     "paged_attention": "src/repro_torch/csrc/paged_attention.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
     "sim_scores": "src/repro_torch/csrc/topk_sim.cu",
+    "ssd_bshp": "src/repro_torch/csrc/ssd.cu",
 }
 MODEL_KERNELS = ("q8_matmul", "q4_matmul", "paged_attention",
                  "flash_attention")
@@ -390,6 +416,75 @@ def check_sim_scores(records):
             rec.bound_ms, rec.bound_by = b, by
 
 
+def ssd_bound(Bb, S, H, P, G, N, Q=128):
+    """Least time for one scan: each input read once and each output
+    written once (bf16 x, B, C; f32 dt, A, y, state), against the operations
+    the chunked form needs per chunk and head. The two masked Q x Q products
+    need only the Q(Q+1)/2 rows on and below the diagonal: C B^T (2N flops a
+    row) has bf16 operands, so it is priced at the bf16 tensor-core rate
+    (f32 accumulation gives the same exact products); L (x dt) (2P flops a
+    row), C state^T and the state update (2QPN flops each) have f32 operands
+    and are priced at the f32 CUDA-core rate. The two times add."""
+    nbytes = (Bb * S * H * P * 2 + Bb * S * H * 4 + H * 4
+              + 2 * Bb * S * G * N * 2 + Bb * S * H * P * 4
+              + Bb * H * P * N * 4)
+    q = min(Q, S)
+    tiles = Bb * H * (S // q)
+    tri = q * (q + 1) // 2
+    flops_bf16 = tiles * 2 * tri * N
+    flops_f32 = tiles * (2 * tri * P + 4 * q * P * N)
+    # bound_ms prices at one rate; express the bf16 work in f32-rate flops
+    return bound_ms(nbytes, flops_f32 + flops_bf16 * F32_FLOPS / BF16_FLOPS,
+                    F32_FLOPS)
+
+
+def check_ssd(records):
+    """The SSD chunk scan on bf16 x, B, C (the model's dtypes) against the
+    plain scan on the same values in f32, at the mamba2-370m shapes the
+    serving run gives it (its two admissions pad to 4 x 128 and 4 x 512),
+    at longer prompts and at zamba2-7b's heads. The kernels line reports
+    mamba2-370m at B = 1, S = 2048."""
+    import torch
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    rec = records["ssd_bshp"]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for label, Bb, S, H, P, G, N in SSD_SHAPES:
+        x = torch.randn((Bb, S, H, P), generator=g, device="cuda").bfloat16()
+        dt = torch.nn.functional.softplus(
+            torch.randn((Bb, S, H), generator=g, device="cuda"))
+        A = -torch.exp(0.5 * torch.randn((H,), generator=g, device="cuda"))
+        Bm = (0.3 * torch.randn((Bb, S, G, N), generator=g,
+                                device="cuda")).bfloat16()
+        Cm = (0.3 * torch.randn((Bb, S, G, N), generator=g,
+                                device="cuda")).bfloat16()
+        run = lambda: ssd_ops.launch(x, dt, A, Bm, Cm, chunk=128)  # noqa: E731
+        y, fs = run()
+        y_ref, fs_ref = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(),
+                                    128)
+        torch.cuda.synchronize()
+        err = max((y - y_ref).abs().max().item(),
+                  (fs - fs_ref).abs().max().item())
+        ok = bool(torch.isfinite(y).all().item()
+                  and torch.isfinite(fs).all().item()) and err < SSD_TOL
+        ms = time_ms(run, iters=20)
+        dev_ms = kernel_device_ms(run, "ssd_kernel", n=20)
+        plain = lambda: ssd_chunked(x, dt, A, Bm, Cm, 128)  # noqa: E731
+        pms = time_ms(plain, iters=5, warmup=1)
+        b, by = ssd_bound(Bb, S, H, P, G, N)
+        log(f"  ssd_bshp {label} B={Bb} S={S} H={H} P={P} N={N}: "
+            f"max_abs_err={err:.2e} (tol {SSD_TOL}) ms={ms:.4f} "
+            f"device_ms={dev_ms:.4f} plain_ms={pms:.4f} bound_ms={b:.5f} "
+            f"({by}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"ssd_bshp {label} B={Bb} S={S} err {err}")
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        if (label, Bb, S) == ("mamba2-370m", 1, 2048):
+            rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = ms, pms, b, by
+        del x, dt, Bm, Cm, y, fs, y_ref, fs_ref
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # 4. serving at full width
 # ---------------------------------------------------------------------------
@@ -580,7 +675,176 @@ def phase_serve():
 
 
 # ---------------------------------------------------------------------------
-# 5. the CarbonCall runtime end to end
+# 5. mamba2-370m on the dense engine
+# ---------------------------------------------------------------------------
+
+
+def _mamba_prompts(seed: int, vocab: int):
+    """8 prompts of 32-300 tokens: the first four pad to the 128 bucket (one
+    chunk), the last four to 512 (four chunks)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(2, vocab, size=n)]
+            for n in (32, 45, 77, 60, 300, 150, 200, 33)]
+
+
+def phase_serve_mamba2(device="cuda", model_cfg=None):
+    """Full-width mamba2-370m (unless `model_cfg` says otherwise) on the
+    dense engine, Q8 then Q4 after a hot swap. The launch counters are set to
+    0 just before the run and read just after. Returns this path's counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import unembed
+    from repro_torch.quant.qtensor import init_quantized
+    from repro_torch.serving import (EngineClient, ServingEngine,
+                                     SessionRequest, check_invariants)
+    from repro_torch.serving.scheduler import DONE
+    from repro_torch.sharding.param import init_params
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = model_cfg if model_cfg is not None else get_arch("mamba2-370m")
+    model = get_model(cfg)
+    spec = model.param_spec()
+    # the weights are drawn on a CPU generator, so a seed gives the same
+    # model on the CPU and on the card
+    sync()
+    t0 = time.perf_counter()
+    variants = init_quantized(spec, ("q8", "q4"), torch.Generator(), device)
+    sync()
+    log(f"serve_mamba2: {cfg.name} ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}) q8+q4 weights drawn on the CPU and quantized on "
+        f"{device} in {time.perf_counter() - t0:.2f} s (host clock)")
+    rcfg = RuntimeConfig()
+    eng = ServingEngine(cfg, variants["q8"], rcfg, max_batch=4, max_seq=512,
+                        kv_layout="auto", device=device, seed=0)
+    if eng.kv_layout != "dense":
+        fail(f"serve_mamba2: kv_layout resolved to {eng.kv_layout}")
+    eng.variant_name = "q8"
+    client = EngineClient(eng)
+    nonfinite = []
+    sample = eng._sample
+
+    def checked_sample(logits, req):
+        if not bool(torch.isfinite(logits).all()):
+            nonfinite.append(req.rid)
+        return sample(logits, req)
+
+    eng._sample = checked_sample
+    prompts = _mamba_prompts(1, cfg.vocab_size)
+    max_new, swap_at = 8, 8
+    sync()
+    kernels.reset_launch_counts()
+    handles = [client.submit(SessionRequest(prompt=p, max_new_tokens=max_new,
+                                            eos_id=-1)) for p in prompts]
+    steps = 0
+    host_s = {"prefill": 0.0, "decode": 0.0}
+    while eng.has_work():
+        if steps == swap_at:
+            eng.swap_params(variants["q4"], "q4")
+        sync()
+        t0 = time.perf_counter()
+        eng.step()
+        sync()
+        host_s[eng.step_log[-1]["kind"]] += time.perf_counter() - t0
+        steps += 1
+        if steps > 1000:
+            fail("serve_mamba2: engine did not drain")
+    launches = kernels.launch_counts()
+    reqs = [h.request for h in handles]
+    bad = [r.rid for r in reqs if r.status != DONE
+           or len(r.output) != max_new]
+    if bad:
+        fail(f"serve_mamba2: requests not DONE with {max_new} tokens: {bad}")
+    if nonfinite:
+        fail(f"serve_mamba2: non-finite logits for rids {nonfinite}")
+    if device == "cuda" and eng.kernel_fallbacks != 0:
+        fail(f"serve_mamba2: kernel_fallbacks = {eng.kernel_fallbacks}")
+    errs = check_invariants(eng, reqs)
+    if errs:
+        fail(f"serve_mamba2: invariant violations: {errs}")
+    if any(not (0 <= t < cfg.vocab_size) for r in reqs for t in r.output):
+        fail("serve_mamba2: an out-of-vocab token")
+    kinds = [(e["kind"], e["variant"], e["prompt_tokens"])
+             for e in eng.step_log]
+    prefills = sum(k == "prefill" for k, _, _ in kinds)
+    variants_seen = {v for _, v, _ in kinds}
+    log(f"  serve_mamba2: {len(reqs)} DONE, steps={steps} ({prefills} "
+        f"prefill, {len(kinds) - prefills} decode), variants "
+        f"{sorted(variants_seen)}, swaps={eng.swap_count}, "
+        f"kernel_fallbacks={eng.kernel_fallbacks}, logits finite, "
+        f"invariants clean, launches={launches}; host clock incl. sync: "
+        f"prefill steps {host_s['prefill']:.3f} s, decode steps "
+        f"{host_s['decode']:.3f} s")
+    if variants_seen != {"q8", "q4"} or eng.swap_count != 1:
+        fail(f"serve_mamba2: no live Q8 -> Q4 swap ({variants_seen})")
+    if device == "cuda":
+        idle = [k for k in ("ssd_bshp", "q8_matmul", "q4_matmul")
+                if launches[k] <= 0]
+        if idle:
+            fail(f"serve_mamba2: kernels never launched on this path: {idle}")
+        if launches["ssd_bshp"] != cfg.num_layers * prefills:
+            fail(f"serve_mamba2: ssd_bshp launched {launches['ssd_bshp']} "
+                 f"times for {prefills} prefills of {cfg.num_layers} layers")
+    del eng
+    # device times of one decode step at batch 4 and one S = 512 prefill of
+    # four rows (the engine's shapes), and that prefill through the kernel
+    # against the same prefill through the plain scan
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(2, cfg.vocab_size, (4, 512), generator=g).to(device)
+    timer = time_ms if device == "cuda" else (
+        lambda fn, iters=1, warmup=0: float("nan"))
+    for fmt in ("q8", "q4"):
+        cache = init_params(model.cache_spec(rcfg, 4, 512), None, device)
+        step = lambda: model.decode_step(  # noqa: E731
+            variants[fmt], cache, toks[:, :1], None, rcfg)
+        ms = timer(step, iters=5, warmup=1)
+        pre = lambda: model.prefill(variants[fmt], {"tokens": toks}, rcfg)  # noqa: E731
+        pms = timer(pre, iters=3, warmup=1)
+        log(f"  mamba2 {fmt}: decode step {ms:.2f} ms at batch 4, prefill "
+            f"{pms:.2f} ms at 4 x 512 tokens (device timeline, CUDA events)")
+        if device == "cuda" and fmt == "q8":
+            profile_window(step, "mamba2 decode q8")
+            # the tied head of that step alone: the (vocab, d) embedding
+            # table cast to f32, then an f32 product
+            h = torch.randn((4, 1, cfg.d_model), generator=g).to(
+                device, torch.bfloat16)
+            head_ms = timer(lambda: unembed(variants[fmt], h, cfg),
+                            iters=5, warmup=1)
+            log(f"  mamba2 tied head (embed cast to f32 + f32 product) at "
+                f"batch 4: {head_ms:.3f} ms of the decode step (CUDA events)")
+    logits, _, _ = model.prefill(variants["q8"], {"tokens": toks}, rcfg)
+    launch_ssd = ssd_ops.ssd
+    ssd_ops.ssd = lambda x, dt, A, Bm, Cm, *, chunk: ssd_chunked(  # noqa: E731
+        x, dt, A, Bm, Cm, chunk)
+    try:
+        plain, _, _ = model.prefill(variants["q8"], {"tokens": toks}, rcfg)
+    finally:
+        ssd_ops.ssd = launch_ssd
+    scale = max(1.0, plain.abs().max().item())
+    err = (logits - plain).abs().max().item()
+    top2 = plain.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) >= 2 * MAMBA_LOGIT_REL * scale
+    same = bool((logits.argmax(-1) == plain.argmax(-1))[sure].all().item())
+    ok = bool(torch.isfinite(logits).all().item()) and \
+        err <= MAMBA_LOGIT_REL * scale and same
+    log(f"  mamba2 q8 prefill 4 x 512, ssd kernel vs plain scan: max |logit "
+        f"diff| {err:.4f} of max |logit| {scale:.2f} (tol "
+        f"{MAMBA_LOGIT_REL} of it), greedy tokens equal on "
+        f"{int(sure.sum())} of 4 rows {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"serve_mamba2: kernel prefill differs from the plain one ({err})")
+    del variants
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 6. the CarbonCall runtime end to end
 # ---------------------------------------------------------------------------
 
 
@@ -710,11 +974,14 @@ def main():
     check_paged(records)
     check_flash(records)
     check_sim_scores(records)
+    check_ssd(records)
     serve_launches, _ = phase_serve()
+    mamba_launches = phase_serve_mamba2()
     runtime_launches = phase_runtime()
-    launches = {k: serve_launches[k] + runtime_launches[k]
+    launches = {k: serve_launches[k] + mamba_launches[k] + runtime_launches[k]
                 for k in kernels.KERNELS}
-    log(f"main-path launches, serve and runtime summed: {launches}")
+    log(f"main-path launches, serve, serve_mamba2 and runtime summed: "
+        f"{launches}")
     log(json.dumps({"kernels": [records[k].to_json(launches[k])
                                 for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -132,8 +132,8 @@ def encode_texts(params, token_ids: torch.Tensor,
 
 
 def init_encoder(generator: torch.Generator, device):
-    """Random encoder weights on `device`, drawn from `generator` (which must
-    live on that device)."""
+    """Random encoder weights on `device`, drawn from `generator` on its own
+    device (`ToolSelector` passes a CPU generator for every device)."""
     return init_params(encoder_spec(), generator, device)
 
 

@@ -30,10 +30,10 @@ The model is the reduced config of `arch` unless `model_cfg` is given (the
 full-width `get_arch(arch)` runs the same loop at full size on the card).
 Weights are random from `seed`, drawn straight into the Q8/Q4 trees leaf by
 leaf (`quant.init_quantized`), so no full-precision tree is ever whole.
-Speculative decoding, chunked prefill, the dense layout and the
-data-parallel mesh are not ported yet: the executor refuses such a config
-with the engine's `NotImplementedError`, naming the ROADMAP item, before it
-makes any weights.
+Speculative decoding, chunked prefill, the dense layout, the data-parallel
+mesh and models other than the transformer family are not ported yet here:
+the executor refuses such a config with a `NotImplementedError` naming the
+ROADMAP item before it makes any weights.
 """
 from __future__ import annotations
 
@@ -108,8 +108,20 @@ class EngineExecutor:
                                   ("num_blocks", num_blocks))
                 if v is not None}
         config = base.replace(**over) if over else base
+        cfg = model_cfg if model_cfg is not None \
+            else reduce_config(get_arch(arch))
         # refuse what the port does not serve before any weights are made
         refuse_unported(config)
+        if config.kv_layout == "dense":
+            raise NotImplementedError(
+                "kv_layout='dense': the runtime serves the transformer "
+                "family, whose dense decode is not ported yet (ROADMAP "
+                "Queue 1 item 4.3)")
+        if cfg.family != "transformer":
+            raise NotImplementedError(
+                f"{cfg.name}: the CarbonCall runtime over family "
+                f"{cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
+                "7a.2); serve it with ServingEngine directly")
         self.profile = profile
         self.power_model = PowerModel(hw)
         self.seed = seed
@@ -118,8 +130,7 @@ class EngineExecutor:
         self.eval_tokens = eval_tokens
 
         device = resolve_device(device, "EngineExecutor")
-        self.cfg = model_cfg if model_cfg is not None \
-            else reduce_config(get_arch(arch))
+        self.cfg = cfg
         rcfg = RuntimeConfig()
         spec = get_model(self.cfg).param_spec()
         gen = torch.Generator(device=device).manual_seed(seed)

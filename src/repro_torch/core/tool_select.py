@@ -89,8 +89,12 @@ class ToolSelector:
         self.index = emb.contiguous()
         self.n_tools = len(texts)
 
-    def _generator(self, seed: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(seed)
+    @staticmethod
+    def _generator(seed: int) -> torch.Generator:
+        """The encoder trees are drawn on the CPU and moved to the selector's
+        device, so one seed gives the same selections on the CPU and on the
+        card (a CUDA generator would draw other numbers)."""
+        return torch.Generator().manual_seed(seed)
 
     def _encode(self, texts: Sequence[str]) -> torch.Tensor:
         ids = torch.from_numpy(self.tok.encode_batch(texts)).to(self.device)

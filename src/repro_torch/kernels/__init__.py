@@ -9,7 +9,7 @@ through the kernels."""
 from typing import Dict
 
 KERNELS = ("q8_matmul", "q4_matmul", "paged_attention", "flash_attention",
-           "sim_scores")
+           "sim_scores", "ssd_bshp")
 LAUNCHES: Dict[str, int] = {k: 0 for k in KERNELS}
 
 

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("quant_matmul", "paged_attention", "flash_attention", "topk_sim")
+SOURCES = ("quant_matmul", "paged_attention", "flash_attention", "topk_sim",
+           "ssd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

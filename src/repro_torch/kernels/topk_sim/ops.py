@@ -3,9 +3,12 @@ Eq. 3) and take the top k.
 
 A CUDA input runs `csrc/topk_sim.cu` (replacing the Pallas `sim_scores` of
 `repro.kernels.topk_sim`), which takes any number of tools and up to 32
-query rows, so neither the tools nor the queries are padded (the Pallas
-kernel needed N to be a multiple of its row block and m of 8); a CPU input
-takes the plain version in `ref.py`.
+query rows a launch, so neither the tools nor the queries are padded (the
+Pallas kernel needed N to be a multiple of its row block and m of 8). More
+query rows are scored in groups of at most 32, one launch each, and the
+groups' scores are merged by an elementwise max: the max over queries is
+associative, so the result is the same as one pass over all rows. A CPU
+input takes the plain version in `ref.py`.
 """
 from __future__ import annotations
 
@@ -28,30 +31,44 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def max_over_groups(queries: torch.Tensor, score) -> torch.Tensor:
+    """Elementwise max of `score(group)` over the query rows taken in groups
+    of at most MAX_QUERIES (the kernel's limit per launch)."""
+    out = None
+    for g0 in range(0, queries.shape[0], MAX_QUERIES):
+        part = score(queries[g0:g0 + MAX_QUERIES])
+        out = part if out is None else torch.maximum(out, part)
+    return out
+
+
+def _launch_group(lib, tools: torch.Tensor, queries: torch.Tensor):
+    N, d = tools.shape
+    out = torch.empty((N,), dtype=torch.float32, device=tools.device)
+    err = lib.sim_scores(tools.data_ptr(), queries.data_ptr(), out.data_ptr(),
+                         N, d, queries.shape[0], _sm_count(tools.device),
+                         torch.cuda.current_stream(tools.device).cuda_stream)
+    build.check(err, "sim_scores")
+    kernels.LAUNCHES["sim_scores"] += 1
+    return out
+
+
 def launch(tools: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
-    """Run the CUDA kernel: tools (N, d) f32, queries (m, d) f32 -> (N,) f32."""
+    """Run the CUDA kernel: tools (N, d) f32, queries (m, d) f32 -> (N,) f32.
+    m > MAX_QUERIES takes one launch per group of MAX_QUERIES rows."""
     if tools.dtype != torch.float32 or queries.dtype != torch.float32:
         raise TypeError("sim_scores kernel takes f32 tools and queries, got "
                         f"{tools.dtype} and {queries.dtype}")
     if queries.device != tools.device:
         raise ValueError(f"tools on {tools.device}, queries on {queries.device}")
-    N, d = tools.shape
-    m = queries.shape[0]
-    if queries.ndim != 2 or queries.shape[1] != d:
+    if queries.ndim != 2 or queries.shape[1] != tools.shape[1]:
         raise ValueError(f"tools {tuple(tools.shape)} vs queries "
                          f"{tuple(queries.shape)}")
-    if not 1 <= m <= MAX_QUERIES:
-        raise ValueError(f"sim_scores kernel takes 1..{MAX_QUERIES} query "
-                         f"rows, got {m}")
+    if queries.shape[0] < 1:
+        raise ValueError("sim_scores kernel takes at least one query row")
     tools, queries = tools.contiguous(), queries.contiguous()
-    out = torch.empty((N,), dtype=torch.float32, device=tools.device)
     lib = build.load("topk_sim", SIGNATURES)
-    err = lib.sim_scores(tools.data_ptr(), queries.data_ptr(), out.data_ptr(),
-                         N, d, m, _sm_count(tools.device),
-                         torch.cuda.current_stream(tools.device).cuda_stream)
-    build.check(err, "sim_scores")
-    kernels.LAUNCHES["sim_scores"] += 1
-    return out
+    return max_over_groups(queries,
+                           lambda group: _launch_group(lib, tools, group))
 
 
 def sim_scores(tools: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:

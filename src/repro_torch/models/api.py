@@ -1,11 +1,23 @@
-"""Uniform Model API over the family modules (transformer family only in
-the port so far)."""
+"""Uniform Model API over the family modules the port serves so far: the
+pattern-1 transformer (paged contract) and the attention-free mamba2 LM
+(dense cache contract)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.config import ModelConfig, RuntimeConfig
-from repro_torch.models import transformer
+from repro_torch.models import mamba2, transformer
+
+
+def _module_for(cfg: ModelConfig):
+    if cfg.family == "mamba2":
+        return mamba2
+    if cfg.family != "transformer":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet; the other "
+            "families are ROADMAP Queue 1 item 7")
+    transformer.check_supported(cfg)
+    return transformer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -14,17 +26,29 @@ class Model:
 
     @property
     def mod(self):
-        transformer.check_supported(self.cfg)
-        return transformer
+        return _module_for(self.cfg)
 
     def param_spec(self):
         return self.mod.param_spec(self.cfg)
 
     def prefill(self, params, batch, rcfg: RuntimeConfig):
-        """-> (last-position logits (B,V), prompt KV entry, lengths (B,))."""
+        """-> (last-position logits (B,V), the rows' cache entry, lengths
+        (B,)): the prompt KV for the paged pool (transformer), or the
+        per-layer {conv, ssm} states for the dense cache (mamba2)."""
         return self.mod.prefill(params, batch, self.cfg, rcfg)
 
-    # -- paged KV contract ---------------------------------------------------
+    # -- dense cache contract (mamba2) ----------------------------------------
+
+    def cache_spec(self, rcfg: RuntimeConfig, batch: int, max_seq: int):
+        return self.mod.cache_spec(self.cfg, rcfg, batch, max_seq)
+
+    def decode_step(self, params, cache, tokens, lengths, rcfg: RuntimeConfig,
+                    positions=None):
+        """-> (logits (B,V), cache updated in place)."""
+        return self.mod.decode_step(params, cache, tokens, lengths, self.cfg,
+                                    rcfg, positions=positions)
+
+    # -- paged KV contract (transformer) --------------------------------------
 
     def supports_paged(self) -> bool:
         return (self.cfg.family == "transformer"

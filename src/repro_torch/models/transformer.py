@@ -13,8 +13,10 @@ Entry points:
   * `paged_cache_spec` / `paged_block_bytes` / `quantize_kv_for_cache` —
     pool layout, capacity math and the int8 KV encoding.
 Every linear layer goes through `quant.dense` (the q8/q4 kernels on the card).
-Chunked prefill, speculative verify and the dense cache layout are not
-ported yet (ROADMAP Queue 1 item 4).
+`embed_tokens` and `unembed` (with the tied-embedding head, h @ embed.T in
+f32) also serve the mamba2 LM. Chunked prefill, speculative verify and the
+transformer's dense cache layout are not ported yet (ROADMAP Queue 1 items
+4.1-4.3).
 """
 from __future__ import annotations
 
@@ -45,8 +47,9 @@ def param_spec(cfg: ModelConfig):
         "embed": ParamDef((V, d), ("vocab", "embed"), init="embed"),
         "layers": layer,
         "final_norm": ParamDef((d,), (None,), init="zeros"),
-        "lm_head": ParamDef((d, V), ("embed", "vocab")),
     }
+    if not cfg.tie_embeddings:
+        spec["lm_head"] = ParamDef((d, V), ("embed", "vocab"))
     return spec
 
 
@@ -78,6 +81,12 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 
 
 def unembed(params, h, cfg: ModelConfig):
+    if cfg.tie_embeddings:
+        # h @ embed.T with f32 accumulation and f32 logits, as the JAX
+        # package's bf16 dot with preferred_element_type=f32: a plain product
+        # outside any kernel (the embedding table is never quantized)
+        return torch.matmul(h.to(torch.float32),
+                            params["embed"].to(torch.float32).T)
     return dense(h, params["lm_head"]).to(torch.float32)
 
 

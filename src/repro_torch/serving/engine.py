@@ -1,6 +1,7 @@
-"""Continuous-batching serving engine with a paged KV cache + prefix caching.
+"""Continuous-batching serving engine with a paged KV cache + prefix caching,
+or a dense per-slot cache for attention-free models.
 
-The port of `repro.serving.engine` for the paged layout. `max_batch` decode
+The port of `repro.serving.engine` for its two layouts. `max_batch` decode
 slots; new requests prefill into free slots (prompts padded to a bucket) and
 every step() decodes all active slots in one batched call. KV lives in a
 block pool of `block_size`-token blocks on the device; each slot maps logical
@@ -14,16 +15,25 @@ resume, so temperature-0 streams are unchanged. `swap_params` installs
 another weight tree between steps (the CarbonCall Q8 <-> Q4 hot swap);
 prefix-cache entries are salted by variant.
 
-The device path: cold admissions run `transformer.prefill` (flash attention
-kernel), cache hits `prefill_paged` (plain `prefix_attention`), each decode
-step `decode_step_paged` (paged attention kernel), and every linear layer
-the q8/q4 kernels. A CPU engine runs the kernels' plain versions, and each
-of its decode steps counts into `kernel_fallbacks`, as in the JAX package.
-The pool is updated in place.
+The paged device path: cold admissions run `transformer.prefill` (flash
+attention kernel), cache hits `prefill_paged` (plain `prefix_attention`),
+each decode step `decode_step_paged` (paged attention kernel), and every
+linear layer the q8/q4 kernels. A CPU engine runs the kernels' plain
+versions, and each of its paged decode steps counts into `kernel_fallbacks`,
+as in the JAX package. The pool is updated in place.
+
+The dense layout (`kv_layout="dense"`, or "auto" for a family without the
+paged contract) keeps one cache tree of `max_batch` slots from the model's
+`cache_spec`. An admission batch runs one padded prefill (mamba2: the ssd
+kernel on the card) and copies each row's cache leaves into its slot; a
+decode step runs the model's `decode_step` over every slot and updates the
+cache in place. There is no prefix cache, copy-on-write or preemption on
+this layout, in the JAX package either. The port serves it for the mamba2
+family only.
 
 Not ported yet, and refused at construction with the ROADMAP item that will
-bring them: chunked prefill, speculative decoding, the dense KV layout, and
-the data-parallel mesh (Queue 1 items 4 and 9).
+bring them: chunked prefill, speculative decoding, the transformer's dense
+decode, and the data-parallel mesh (Queue 1 items 4.1-4.3 and 9).
 """
 from __future__ import annotations
 
@@ -108,19 +118,16 @@ def _pow2(n: int, cap: int) -> int:
 
 def refuse_unported(config: EngineConfig, mesh=None):
     """Raise NotImplementedError, naming the ROADMAP item, for an engine
-    configuration the port does not serve yet."""
+    configuration the port does not serve yet. The dense layout depends on
+    the model's family and is checked once the layout is resolved."""
     if config.prefill_chunk is not None:
         raise NotImplementedError(
             "prefill_chunk: chunked prefill is not ported yet "
-            "(ROADMAP Queue 1 item 4, step 2)")
+            "(ROADMAP Queue 1 item 4.1)")
     if config.spec_decode is not None:
         raise NotImplementedError(
             "spec_decode: speculative decoding is not ported yet "
-            "(ROADMAP Queue 1 item 4, step 3)")
-    if config.kv_layout == "dense":
-        raise NotImplementedError(
-            "kv_layout='dense' is not ported yet (ROADMAP Queue 1 "
-            "item 4, step 5)")
+            "(ROADMAP Queue 1 item 4.2)")
     if mesh is not None or config.data_shards > 1:
         raise NotImplementedError(
             "mesh / data_shards > 1: the data-parallel engine is not "
@@ -156,9 +163,9 @@ class ServingEngine:
             over["prompt_buckets"] = tuple(prompt_buckets)
         self.config = config = base.replace(**over) if over else base
         refuse_unported(config, mesh)
-        if config.kv_layout not in ("auto", "paged"):
+        if config.kv_layout not in ("auto", "paged", "dense"):
             raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
-                             "expected 'auto' or 'paged'")
+                             "expected 'auto', 'paged' or 'dense'")
         # kv_cache_dtype: an explicit int8 on either surface wins, and both
         # end up agreeing (as in the JAX package)
         if config.kv_cache_dtype not in ("bf16", "int8"):
@@ -176,9 +183,18 @@ class ServingEngine:
         self.cfg = cfg
         self.rcfg = rcfg
         self.model = get_model(cfg)
-        if not self.model.supports_paged():
+        kv_layout = config.kv_layout
+        if kv_layout == "auto":
+            kv_layout = "paged" if self.model.supports_paged() else "dense"
+        if kv_layout == "paged" and not self.model.supports_paged():
             raise ValueError(f"{cfg.name}: family {cfg.family!r} does not "
                              "implement the paged KV contract")
+        if kv_layout == "dense" and cfg.family != "mamba2":
+            raise NotImplementedError(
+                f"kv_layout='dense' serves the mamba2 family only; the dense "
+                f"decode of family {cfg.family!r} is not ported yet (ROADMAP "
+                "Queue 1 item 4.3)")
+        self.kv_layout = kv_layout
         self.params = params
         self.max_batch = max_batch = config.max_batch
         self.max_seq = max_seq = config.max_seq
@@ -188,30 +204,13 @@ class ServingEngine:
         self.step_cost_fn = step_cost_fn
         self.variant_name = "bf16"
         self.swap_count = 0
-        self.kv_layout = "paged"
-        self.block_size = block_size = config.block_size
-        self.blocks_per_slot = -(-max_seq // block_size)
-        num_blocks = config.num_blocks
-        if num_blocks is None:
-            # all slots full + one transient CoW block per slot + one slot's
-            # worth of slack for cached prefixes + scratch block 0
-            num_blocks = ((max_batch + 1) * self.blocks_per_slot
-                          + max_batch + 2)
-            if rcfg.kv_cache_dtype == "int8":
-                # same byte budget as the bf16 default pool, ~2x the blocks
-                budget = (num_blocks - 1) * paged_block_bytes(
-                    cfg, block_size, "bf16")
-                num_blocks = 1 + budget // paged_block_bytes(
-                    cfg, block_size, "int8")
-        pool_spec = self.model.paged_cache_spec(rcfg, num_blocks, block_size)
-        self.pool = init_params(pool_spec, None, self.device)
-        self.block_pool = BlockPool(num_blocks, block_size)
-        self.prefix_cache = PrefixCache(self.block_pool)
-        self.block_tables = np.zeros((max_batch, self.blocks_per_slot),
-                                     np.int32)
-        self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+        if kv_layout == "paged":
+            self._init_paged(config)
+        else:
+            self.cache = init_params(
+                self.model.cache_spec(rcfg, max_batch, max_seq), None,
+                self.device)
         self.lengths = np.zeros((max_batch,), np.int32)
-        self.cow_count = 0
         self.slots: List[Optional[Request]] = [None] * max_batch
         # the admitted token row + emitted-count baseline per slot: together
         # they reconstruct the exact KV sequence when a slot is preempted
@@ -229,10 +228,39 @@ class ServingEngine:
         self.draft_tokens = 0
         self.accepted_tokens = 0
         # decode steps whose paged-attention reads ran the plain version (a
-        # CPU engine); a pure function of the device, counted per step
-        self._paged_fallback = paged_attention_uses_fallback(self.device)
+        # CPU paged engine); a pure function of the device, counted per step
+        self._paged_fallback = (kv_layout == "paged"
+                                and paged_attention_uses_fallback(self.device))
         self.kernel_fallbacks = 0
         self.step_log: List[Dict] = []
+
+    def _init_paged(self, config: EngineConfig):
+        """The block pool, its refcounts, the prefix cache and the per-slot
+        block tables of the paged layout."""
+        cfg, max_batch = self.cfg, self.max_batch
+        self.block_size = block_size = config.block_size
+        self.blocks_per_slot = -(-self.max_seq // block_size)
+        num_blocks = config.num_blocks
+        if num_blocks is None:
+            # all slots full + one transient CoW block per slot + one slot's
+            # worth of slack for cached prefixes + scratch block 0
+            num_blocks = ((max_batch + 1) * self.blocks_per_slot
+                          + max_batch + 2)
+            if self.rcfg.kv_cache_dtype == "int8":
+                # same byte budget as the bf16 default pool, ~2x the blocks
+                budget = (num_blocks - 1) * paged_block_bytes(
+                    cfg, block_size, "bf16")
+                num_blocks = 1 + budget // paged_block_bytes(
+                    cfg, block_size, "int8")
+        pool_spec = self.model.paged_cache_spec(self.rcfg, num_blocks,
+                                                block_size)
+        self.pool = init_params(pool_spec, None, self.device)
+        self.block_pool = BlockPool(num_blocks, block_size)
+        self.prefix_cache = PrefixCache(self.block_pool)
+        self.block_tables = np.zeros((max_batch, self.blocks_per_slot),
+                                     np.int32)
+        self.slot_blocks: List[List[int]] = [[] for _ in range(max_batch)]
+        self.cow_count = 0
 
     # -- public API ---------------------------------------------------------
 
@@ -285,6 +313,8 @@ class ServingEngine:
         return stats
 
     def prefix_cache_stats(self) -> Dict[str, int]:
+        if self.kv_layout != "paged":
+            return {}
         return {"hits": self.prefix_cache.hits,
                 "misses": self.prefix_cache.misses,
                 "entries": len(self.prefix_cache.entries),
@@ -324,7 +354,8 @@ class ServingEngine:
                     "paged KV pool exhausted: cannot admit any pending "
                     "request with an idle engine — raise num_blocks",
                     waiting=len(self.pending),
-                    free_blocks=self.block_pool.num_free)
+                    free_blocks=(self.block_pool.num_free
+                                 if self.kv_layout == "paged" else 0))
             return completed
         self.peak_active = max(self.peak_active, self.active, occupancy)
         if self.step_cost_fn is not None and hasattr(self.clock, "advance"):
@@ -396,6 +427,38 @@ class ServingEngine:
         self._admit_seq += 1
 
     def _admit_batch(self, free: List[int]):
+        """Batched admission: fill free slots this step. Returns (admitted
+        requests, prompt tokens charged, prompt tokens cached)."""
+        if self.kv_layout == "paged":
+            return self._admit_batch_paged(free)
+        reqs: List[Request] = []
+        for req in self.scheduler.waiting:
+            reqs.append(req)
+            if len(reqs) == len(free):
+                break
+        if not reqs:
+            return [], 0, 0
+        now = self.clock()
+        for req in reqs:
+            self.scheduler.note_admitted(req, now)
+        b = _bucket(max(len(r.prompt) for r in reqs), self.prompt_buckets)
+        toks = np.zeros((self.max_batch, b), np.int32)
+        for i, r in enumerate(reqs):
+            toks[i] = self._padded_row(r.prompt, b)
+        logits, entry, lengths_n = self.model.prefill(
+            self.params, self._batch(toks), self.rcfg)
+        lengths_n = lengths_n.cpu().numpy()
+        for i, (req, slot) in enumerate(zip(reqs, free)):
+            for key, leaf in self.cache.items():
+                leaf[:, slot] = entry[key][:, i].to(leaf.dtype)
+            self.lengths[slot] = int(lengths_n[i])
+            self._place(req, slot, toks[i])
+            tok = self._sample(logits[i:i + 1], req)
+            self._emit(req, slot, int(tok[0]))
+            self._slot_emit0[slot] = len(req.output)
+        return reqs, sum(len(r.prompt) for r in reqs), 0
+
+    def _admit_batch_paged(self, free: List[int]):
         """Paged admission: look up each prompt's longest cached prefix chain,
         share those blocks (copy-on-write protected), allocate fresh blocks
         for the rest, and prefill only the non-cached suffixes. Watermark
@@ -696,13 +759,18 @@ class ServingEngine:
             if req is not None:
                 last[i, 0] = req.output[-1] if req.output else (
                     req.prompt[-1] if req.prompt else 0)
-        self._prepare_decode_blocks()
         dev = self.device
-        logits, self.pool = self.model.decode_step_paged(
-            self.params, self.pool, torch.as_tensor(last, device=dev),
-            torch.as_tensor(self.lengths, device=dev),
-            torch.as_tensor(self.block_tables, device=dev), self.rcfg,
-            seq_cap=self.max_seq)
+        if self.kv_layout == "paged":
+            self._prepare_decode_blocks()
+            logits, self.pool = self.model.decode_step_paged(
+                self.params, self.pool, torch.as_tensor(last, device=dev),
+                torch.as_tensor(self.lengths, device=dev),
+                torch.as_tensor(self.block_tables, device=dev), self.rcfg,
+                seq_cap=self.max_seq)
+        else:
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache, torch.as_tensor(last, device=dev),
+                torch.as_tensor(self.lengths, device=dev), self.rcfg)
         # saturate at max_seq: a full context drops further KV writes
         for i, req in enumerate(self.slots):
             if req is not None:
@@ -758,10 +826,11 @@ class ServingEngine:
         self.slots[i] = None
         self._slot_row[i] = None
         self._slot_emit0[i] = 0
-        for bid in self.slot_blocks[i]:
-            self.block_pool.decref(bid)
-        self.slot_blocks[i] = []
-        self.block_tables[i] = 0
+        if self.kv_layout == "paged":
+            for bid in self.slot_blocks[i]:
+                self.block_pool.decref(bid)
+            self.slot_blocks[i] = []
+            self.block_tables[i] = 0
         self.lengths[i] = 0
 
     def _sample(self, logits, req: Request) -> np.ndarray:

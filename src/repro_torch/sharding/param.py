@@ -46,8 +46,11 @@ class ParamDef:
 
 def init_leaf(d: ParamDef, generator: torch.Generator,
               device) -> torch.Tensor:
-    """One leaf: draws f32 normals from `generator` (which must live on
-    `device`), scales them and casts to the leaf dtype."""
+    """One leaf on `device`: draws f32 normals from `generator` on the
+    generator's own device, scales them, casts to the leaf dtype and moves
+    the result. A seed gives the same numbers on every target device only
+    when the generator is the same kind: a CPU generator's leaves are the
+    same on the CPU and on the card (a CUDA generator draws others)."""
     if d.init == "zeros":
         return torch.zeros(d.shape, dtype=d.torch_dtype, device=device)
     if d.init == "ones":
@@ -60,9 +63,9 @@ def init_leaf(d: ParamDef, generator: torch.Generator,
         std = {"normal": 0.02, "embed": 1.0, "small": 1e-3}[d.init] * d.scale
     else:
         raise ValueError(d.init)
-    x = torch.randn(d.shape, generator=generator, device=device,
+    x = torch.randn(d.shape, generator=generator, device=generator.device,
                     dtype=torch.float32)
-    return x.mul_(std).to(d.torch_dtype)
+    return x.mul_(std).to(d.torch_dtype).to(device)
 
 
 def init_params(spec, generator: torch.Generator, device):

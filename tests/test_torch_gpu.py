@@ -109,3 +109,48 @@ def test_sim_scores_kernel(gen, N, d, m, k):
     assert g_i.tolist() == w_i.tolist()
     s_raw, i_raw = ts_ops.topk_tools(tools, 3.0 * q, k=k)
     assert i_raw.tolist() == w_i.tolist()
+
+
+@pytest.mark.parametrize("m", [33, 64])
+def test_sim_scores_kernel_query_groups(gen, m):
+    """More than 32 query rows: one launch per group of 32, merged by max."""
+    d = 256
+    q = torch.nn.functional.normalize(
+        torch.randn((m, d), generator=gen, device="cuda"), dim=-1)
+    tools = torch.nn.functional.normalize(
+        torch.randn((256, d), generator=gen, device="cuda"), dim=-1)
+    before = kernels.launch_counts()["sim_scores"]
+    got = ts_ops.sim_scores(tools, q)
+    want = ts_ops.sim_scores_ref(tools, q)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sim_scores"] == before + -(-m // 32)
+    assert (got - want).abs().max().item() <= SIM_TOL
+    assert ts_ops.top_k(got, 16)[1].tolist() == ts_ops.top_k(want, 16)[1].tolist()
+
+
+SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", [
+    (2, 256, 4, 64, 1, 128, 128), (1, 128, 8, 32, 2, 64, 64),
+    (2, 64, 4, 16, 1, 32, 32), (1, 256, 2, 64, 1, 16, 64),
+    (1, 40, 2, 16, 1, 16, 20), (2, 24, 4, 64, 2, 128, 128)])
+def test_ssd_kernel(gen, B, S, H, P, G, N, Q):
+    """The SSD kernel on bf16 x, B, C against the plain scan on the same
+    values in f32; chunks shorter than 128 rows (20, and 24 = S) included."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda").bfloat16()
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda"))
+    A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device="cuda"))
+    Bm = (0.3 * torch.randn((B, S, G, N), generator=gen, device="cuda")).bfloat16()
+    Cm = (0.3 * torch.randn((B, S, G, N), generator=gen, device="cuda")).bfloat16()
+    before = kernels.launch_counts()["ssd_bshp"]
+    y, fs = ssd_ops.launch(x, dt, A, Bm, Cm, chunk=Q)
+    y_ref, fs_ref = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(), Q)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["ssd_bshp"] == before + 1
+    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
+    assert (y - y_ref).abs().max().item() < SSD_TOL
+    assert (fs - fs_ref).abs().max().item() < SSD_TOL

@@ -1,0 +1,109 @@
+"""Repairs of the port's own faults, on the CPU:
+
+  * `sim_scores` takes any number of query rows: the CUDA wrapper scores
+    them in groups of at most 32 (one kernel launch each) and merges the
+    groups by an elementwise max. The grouping is checked here with the
+    plain scorer per group, against the Pallas kernel in interpret mode and
+    the reference's top k. SCORE_TOL = 1e-5, the retrieval tolerance.
+  * One seed gives the same encoder weights on every device: the selector
+    draws its trees on a CPU generator and moves them. The card is stood in
+    for by the "meta" device, which keeps shapes and no values: the draw
+    must consume the CPU generator exactly as a CPU draw does.
+  * The engine's and the executor's refusals name the ROADMAP items 4.1,
+    4.2 and 4.3.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.topk_sim import ops as ref_ops
+from repro.kernels.topk_sim import topk_sim as ref_kernel
+
+from repro_torch.common.hardware import ORIN_AGX
+from repro_torch.common.registry import get_arch
+from repro_torch.common.tree import tree_map
+from repro_torch.config import RuntimeConfig
+from repro_torch.configs.reduced import reduce_config
+from repro_torch.core import embedder as E
+from repro_torch.core.engine_executor import EngineExecutor
+from repro_torch.core.executor import PAPER_MODELS
+from repro_torch.core.tool_select import ToolSelector
+from repro_torch.kernels.topk_sim import ops
+from repro_torch.kernels.topk_sim.ref import sim_scores_ref
+from repro_torch.serving import (EngineConfig, ServingEngine,
+                                 SpecDecodeConfig)
+
+SCORE_TOL = 1e-5
+
+
+def _unit(a):
+    return a / np.linalg.norm(a, axis=-1, keepdims=True)
+
+
+@pytest.mark.parametrize("m", [33, 40, 64])
+def test_sim_scores_grouping_matches_reference(m):
+    g = np.random.default_rng(m)
+    N, d, k = 256, 64, 16
+    tools = _unit(g.standard_normal((N, d))).astype(np.float32)
+    queries = _unit(g.standard_normal((m, d))).astype(np.float32)
+    tq = torch.from_numpy(queries)
+    groups = []
+
+    def score(group):
+        groups.append(group.shape[0])
+        return sim_scores_ref(torch.from_numpy(tools), group)
+
+    got = ops.max_over_groups(tq, score)
+    assert groups == [32] * (m // 32) + ([m % 32] if m % 32 else [])
+    want = np.asarray(ref_kernel.sim_scores(jnp.asarray(tools),
+                                            jnp.asarray(queries), bt=256,
+                                            interpret=True))
+    assert float(np.max(np.abs(got.numpy() - want))) <= SCORE_TOL
+    _, got_i = ops.top_k(got, k)
+    _, want_i = ref_ops.topk_tools(jnp.asarray(tools), jnp.asarray(queries),
+                                   k=k)
+    assert got_i.tolist() == np.asarray(want_i).tolist()
+
+
+def test_encoder_trees_are_drawn_on_the_cpu_for_any_device():
+    assert ToolSelector._generator(0).device.type == "cpu"
+    for init in (E.init_encoder, E.init_cross):
+        g_cpu, g_dev = ToolSelector._generator(0), ToolSelector._generator(0)
+        on_cpu = init(g_cpu, "cpu")
+        on_dev = init(g_dev, "meta")
+        assert torch.equal(g_cpu.get_state(), g_dev.get_state())
+        tree_map(lambda a, b: None if (a.shape == b.shape and a.dtype == b.dtype
+                                       and b.device.type == "meta")
+                 else pytest.fail("leaf differs"), on_cpu, on_dev)
+        # and a second CPU draw from the same seed is the same tree
+        again = init(ToolSelector._generator(0), "cpu")
+        tree_map(lambda a, b: None if torch.equal(a, b)
+                 else pytest.fail("draw differs"), on_cpu, again)
+
+
+def test_selector_on_cpu_uses_the_seeded_cpu_encoder():
+    from repro_torch.data.workload import build_catalog
+    sel = ToolSelector(build_catalog(16, seed=0), seed=3, device="cpu",
+                       rcfg=RuntimeConfig())
+    want = E.init_encoder(torch.Generator().manual_seed(3), "cpu")
+    tree_map(lambda a, b: None if torch.equal(a, b)
+             else pytest.fail("encoder differs"), sel.encoder_params, want)
+
+
+@pytest.mark.parametrize("config,item", [
+    (EngineConfig(prefill_chunk=32), "Queue 1 item 4.1"),
+    (EngineConfig(spec_decode=SpecDecodeConfig()), "Queue 1 item 4.2"),
+    (EngineConfig(kv_layout="dense"), "Queue 1 item 4.3"),
+])
+@pytest.mark.parametrize("entry", ["engine", "executor"])
+def test_refusals_name_the_roadmap_items(config, item, entry):
+    """Both entry points refuse before any weights are used, so the engine
+    gets none; the dense layout is refused for the transformer family."""
+    with pytest.raises(NotImplementedError, match=item):
+        if entry == "engine":
+            ServingEngine(reduce_config(get_arch("carboncall-qwen2-7b")),
+                          None, RuntimeConfig(), config=config, device="cpu")
+        else:
+            EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX,
+                           config=config, device="cpu")
