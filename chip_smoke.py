@@ -5,7 +5,9 @@
 Phases, each raising on its first fault (the script then exits non-zero):
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
   2. build   — every CUDA source under src/repro_torch/csrc built at once
-               with nvcc for sm_90a; the ptxas register/spill lines;
+               with nvcc for sm_90a; the ptxas register/spill lines (the
+               quant-matmul kernels must not spill) and the tensor-core
+               instructions (HMMA, HGMMA) in each quant-matmul kernel's SASS;
   3. kernels — each hand-written kernel against its plain PyTorch version on
                the same inputs at the serving path's shapes, with its time
                (CUDA events), its bound and a library call's time;
@@ -42,7 +44,10 @@ Phases, each raising on its first fault (the script then exits non-zero):
                record must have tps > 0 and both variants must appear.
                Seconds, joules and carbon of the records come from the
                virtual clock and the Orin power model, not from the card.
-The kernel check of phase 3 includes sim_scores, at the runtime's index
+The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
+carboncall-qwen2-7b's five (K, N) for M in QM_ROWS (both regimes and their
+edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
+twice with bit-identical results; it includes sim_scores, at the runtime's index
 (N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 3 and 8 sentences, and
 m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
 held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
@@ -58,6 +63,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -68,6 +74,11 @@ BF16_FLOPS = 989e12             # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 QM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
              (3584, 152064)]    # (K, N): wq/wo, wk/wv, wg/wu, down, lm_head
+# decode rows (1-16, the regime's edge), prefill rows (17 up)
+QM_ROWS = (1, 4, 8, 16, 17, 64, 512)
+QM_MAMBA_SHAPES = [(1024, 2048), (1024, 128), (1024, 32),
+                   (2048, 1024)]  # mamba2-370m: wz/wx, wb/wc, wdt, out_proj
+QM_MAMBA_ROWS = (4, 512, 2048)  # the serve path's decode and two admissions
 QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
 # max |err| of the attention outputs (bf16). Paged rows average 129-256
 # positions, so |out| is ~0.1 and one bf16 ulp there is ~5e-4; int8 pools
@@ -169,10 +180,43 @@ def phase_build():
     reports = build.build_all()
     log(f"build: {len(reports)} sources built in "
         f"{time.perf_counter() - t0:.1f} s (host clock)")
-    for name, rep in sorted(reports.items()):
-        for line in rep.splitlines():
-            if "registers" in line or "spill" in line or "Compiling" in line:
+    for name in sorted(build.SOURCES):
+        for line in build.ptxas_report(name).splitlines():
+            if any(k in line for k in ("registers", "spill", "Compiling",
+                                       "Performance")):
                 log(f"  ptxas[{name}]: {line.strip()}")
+    qm_report = build.ptxas_report("quant_matmul")
+    spills = [m.group(0) for m in re.finditer(
+        r"[1-9][0-9]* bytes spill (stores|loads)", qm_report)]
+    if not qm_report or spills:
+        fail(f"quant_matmul kernels: no ptxas report, or spills {spills}")
+    counts = sass_mma_counts(build.library_path("quant_matmul"))
+    for fn, n in sorted(counts.items()):
+        log(f"  sass[quant_matmul]: {n} HMMA/HGMMA in {fn}")
+    idle = [fn for fn, n in counts.items() if n == 0]
+    if not counts or idle:
+        fail(f"quant_matmul kernels without tensor-core instructions: "
+             f"{idle or 'no kernels found'}")
+
+
+def sass_mma_counts(lib_path) -> dict:
+    """Tensor-core instructions (HMMA, HGMMA) per kernel in a built library's
+    SASS, by cuobjdump from the toolkit that built it."""
+    from repro_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                         text=True, timeout=300)
+    if res.returncode != 0:
+        fail(f"cuobjdump failed: {res.stderr.strip()[:400]}")
+    counts, fn = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -197,51 +241,79 @@ class KernelRecord:
                 "library_ms": self.library_ms}
 
 
-def check_quant_matmul(records, timed_m: int):
-    """q8 and q4 at the five (K, N) of the full-width model, for M = 4 (the
-    serving run's decode rows), 8 and 512 (prefill rows). The kernels line
-    reports the M = `timed_m` sums over the five shapes."""
+def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
+    """q8 and q4 against their plain versions at carboncall-qwen2-7b's five
+    (K, N) for M in QM_ROWS (decode rows, both regimes' edges, prefill rows)
+    and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS (the serve
+    path's decode and two admissions); every case is launched twice and the
+    two results must be equal bit for bit. The kernels line reports the
+    M = `timed_m` sums over the five qwen2 shapes; one log line per format
+    gives the M = `prefill_m` sums beside them."""
     import torch
     from repro_torch.kernels.quant_matmul import ops as qm
     from repro_torch.quant.qtensor import dequantize, quantize
     g = torch.Generator(device="cuda").manual_seed(1)
     for fmt in ("q8", "q4"):
         rec = records[f"{fmt}_matmul"]
-        for K, N in QM_SHAPES:
-            w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
-            t = quantize(w.to(torch.bfloat16), fmt)
-            del w
-            wdq = dequantize(t, torch.bfloat16)
-            for M in (4, 8, 512):
-                x = torch.randn((M, K), generator=g, device="cuda").to(
-                    torch.bfloat16)
-                got = qm.launch(x, t)
-                want = qm.plain(x, t)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                rel = err / max(want.float().abs().max().item(), 1e-6)
-                ok = bool(torch.isfinite(got).all().item()) and rel < QM_TOL
-                ms = time_ms(lambda: qm.launch(x, t))
-                pms = time_ms(lambda: qm.plain(x, t), iters=3, warmup=1)
-                lms = time_ms(lambda: torch.matmul(x, wdq))
-                qbytes = t.nbytes()
-                nbytes = M * K * 2 + qbytes + M * N * 2
-                b, by = bound_ms(nbytes, 2.0 * M * K * N, BF16_FLOPS)
-                log(f"  {fmt}_matmul M={M} K={K} N={N}: rel_err={rel:.2e} "
-                    f"ms={ms:.4f} plain_ms={pms:.4f} matmul_bf16_ms={lms:.4f} "
-                    f"bound_ms={b:.4f} ({by}) "
-                    f"{'ok' if ok else 'MISMATCH'}")
-                if not ok:
-                    fail(f"{fmt}_matmul M={M} K={K} N={N} rel err {rel}")
-                rec.max_abs_err = max(rec.max_abs_err, err)
-                if M == timed_m:
-                    rec.ms += ms
-                    rec.plain_ms += pms
-                    rec.library_ms = (rec.library_ms or 0.0) + lms
-                    rec.bound_ms += b
-                    rec.bound_by = by
-            del t, wdq
-            torch.cuda.empty_cache()
+        sums = {M: [0.0, 0.0, 0.0, 0.0] for M in (timed_m, prefill_m)}
+        for label, shapes, rows in (("qwen2", QM_SHAPES, QM_ROWS),
+                                    ("mamba2", QM_MAMBA_SHAPES,
+                                     QM_MAMBA_ROWS)):
+            for K, N in shapes:
+                w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
+                t = quantize(w.to(torch.bfloat16), fmt)
+                del w
+                wdq = dequantize(t, torch.bfloat16)
+                for M in rows:
+                    x = torch.randn((M, K), generator=g, device="cuda").to(
+                        torch.bfloat16)
+                    got = qm.launch(x, t)
+                    again = qm.launch(x, t)
+                    want = qm.plain(x, t)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, again)
+                    err = (got.float() - want.float()).abs().max().item()
+                    rel = err / max(want.float().abs().max().item(), 1e-6)
+                    ok = bool(torch.isfinite(got).all().item()) \
+                        and rel < QM_TOL and same
+                    regime = qm.plan(M, K, N, fmt, t.group,
+                                     qm._sm_count(x.device)).regime
+                    line = (f"  {fmt}_matmul {label} M={M} K={K} N={N} "
+                            f"{regime}: rel_err={rel:.2e} repeat "
+                            f"{'bit-identical' if same else 'DIFFERS'}")
+                    timed = label == "mamba2" or M in sums
+                    if timed:
+                        run = lambda: qm.launch(x, t)  # noqa: E731
+                        ms = time_ms(run)
+                        dev_ms = kernel_device_ms(run, "qmm_", n=20)
+                        lms = time_ms(lambda: torch.matmul(x, wdq))
+                        nbytes = M * K * 2 + t.nbytes() + M * N * 2
+                        b, by = bound_ms(nbytes, 2.0 * M * K * N, BF16_FLOPS)
+                        line += (f" ms={ms:.4f} device_ms={dev_ms:.4f} "
+                                 f"matmul_bf16_ms={lms:.4f} "
+                                 f"bound_ms={b:.4f} ({by})")
+                        if label == "qwen2":
+                            sums[M] = [a + v for a, v in
+                                       zip(sums[M], (ms, dev_ms, b, lms))]
+                        if label == "qwen2" and M == timed_m:
+                            pms = time_ms(lambda: qm.plain(x, t), iters=3,
+                                          warmup=1)
+                            line += f" plain_ms={pms:.4f}"
+                            rec.ms += ms
+                            rec.plain_ms += pms
+                            rec.library_ms = (rec.library_ms or 0.0) + lms
+                            rec.bound_ms += b
+                            rec.bound_by = by
+                    log(f"{line} {'ok' if ok else 'MISMATCH'}")
+                    if not ok:
+                        fail(f"{fmt}_matmul {label} M={M} K={K} N={N} rel err "
+                             f"{rel}, repeat bit-identical {same}")
+                    rec.max_abs_err = max(rec.max_abs_err, err)
+                del t, wdq
+                torch.cuda.empty_cache()
+        log(f"  {fmt}_matmul sums over the five qwen2 shapes: " + "; ".join(
+            f"M={M}: ms={v[0]:.4f} device_ms={v[1]:.4f} bound_ms={v[2]:.4f} "
+            f"matmul_bf16_ms={v[3]:.4f}" for M, v in sums.items()))
 
 
 def _paged_inputs(g, B, K, G, H, bs, nb, lengths, int8):
@@ -606,8 +678,8 @@ def decode_step_ms(cfg, params, kv_cache_dtype, label):
 
 
 def profile_window(step, label, n: int = 3):
-    """Where a decode step's time goes: device self time by kernel over `n`
-    steps (torch.profiler), and the share of the window with no kernel."""
+    """Where a step's time goes: device self time by kernel over `n` steps
+    (torch.profiler), and the share of the window with no kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -808,6 +880,7 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
             f"{pms:.2f} ms at 4 x 512 tokens (device timeline, CUDA events)")
         if device == "cuda" and fmt == "q8":
             profile_window(step, "mamba2 decode q8")
+            profile_window(pre, "mamba2 prefill q8 (4 x 512)", n=1)
             # the tied head of that step alone: the (vocab, d) embedding
             # table cast to f32, then an f32 product
             h = torch.randn((4, 1, cfg.d_model), generator=g).to(
@@ -970,7 +1043,7 @@ def main():
     from repro_torch import kernels
     records = {k: KernelRecord(k) for k in kernels.KERNELS}
     log("kernels: each against its plain version")
-    check_quant_matmul(records, timed_m=4)
+    check_quant_matmul(records)
     check_paged(records)
     check_flash(records)
     check_sim_scores(records)

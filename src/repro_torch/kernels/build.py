@@ -9,8 +9,9 @@ never loads a stale library. Building happens at first use — never at import
 — so the CPU-only test run imports every module without a compiler.
 
 `build_all` starts one nvcc per source at once and returns each build's
-`-Xptxas -v` report (registers, shared memory, spills); `load` returns the
-ctypes handle, building first if needed. A failed build raises.
+`-Xptxas -v` report (registers, shared memory, spills), which also stays
+beside the library (`ptxas_report`); `load` returns the ctypes handle,
+building first if needed. A failed build raises.
 """
 from __future__ import annotations
 
@@ -82,9 +83,17 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
             continue
         os.replace(tmp, out)
         reports[n] = (stdout + stderr).strip()
+        out.with_suffix(".ptxas").write_text(reports[n])
     if failed:
         raise KernelBuildError("nvcc failed:\n" + "\n".join(failed))
     return reports
+
+
+def ptxas_report(name: str) -> str:
+    """The `-Xptxas -v` report of the built `csrc/<name>.cu`, kept beside
+    the library; empty if it was not built here."""
+    path = library_path(name).with_suffix(".ptxas")
+    return path.read_text() if path.exists() else ""
 
 
 def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:

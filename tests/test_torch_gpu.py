@@ -25,13 +25,26 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("fmt", ["q8", "q4"])
-@pytest.mark.parametrize("M,K,N", [(1, 256, 64), (4, 512, 512),
-                                   (37, 384, 1024)])
-def test_quant_matmul_kernel(gen, fmt, M, K, N):
+def _quant_case(gen, fmt, M, K, N):
     w = torch.randn((K, N), generator=gen, device="cuda") / math.sqrt(K)
     t = quantize(w, fmt)
     x = torch.randn((M, K), generator=gen, device="cuda").bfloat16()
+    return x, t
+
+
+# both regimes and their edges: decode M <= 16 (one or two mma row tiles),
+# prefill M >= 17 (ragged 128-row tiles); N = 32 and 128 (mamba2's narrow
+# weights), N = 136 (N % 16 == 8: the 8-byte load path); K = 3584 and 2048
+# with few column tiles, which split K across blocks
+@pytest.mark.parametrize("fmt", ["q8", "q4"])
+@pytest.mark.parametrize("M,K,N", [(1, 256, 64), (4, 512, 512),
+                                   (37, 384, 1024), (1, 1024, 32),
+                                   (16, 1024, 128), (17, 1024, 32),
+                                   (16, 3584, 512), (4, 2048, 136),
+                                   (37, 256, 136), (512, 1024, 128),
+                                   (512, 512, 32)])
+def test_quant_matmul_kernel(gen, fmt, M, K, N):
+    x, t = _quant_case(gen, fmt, M, K, N)
     before = kernels.launch_counts()[f"{fmt}_matmul"]
     got = qm_ops.quant_matmul(x, t)
     want = qm_ops.plain(x, t)
@@ -39,6 +52,18 @@ def test_quant_matmul_kernel(gen, fmt, M, K, N):
     assert kernels.launch_counts()[f"{fmt}_matmul"] == before + 1
     rel = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert rel.item() < 0.02
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4"])
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (16, 2048, 1024),
+                                   (512, 1024, 256)])
+def test_quant_matmul_repeat_is_bit_identical(gen, fmt, M, K, N):
+    """The split-K reduction sums in a fixed order: launches agree bit for
+    bit, whichever block of a tile arrives last."""
+    x, t = _quant_case(gen, fmt, M, K, N)
+    first = qm_ops.quant_matmul(x, t)
+    for _ in range(5):
+        assert torch.equal(qm_ops.quant_matmul(x, t), first)
 
 
 @pytest.mark.parametrize("int8", [False, True])

@@ -145,12 +145,72 @@ def test_split_counts_and_fallback_predicate():
     assert not pa_ops.paged_attention_uses_fallback("cuda")
 
 
-def test_split_k_choice():
-    """Chunks are group multiples, no split is empty, and small-N weights
-    get enough blocks for two waves."""
-    for M, K, N, quantum in [(4, 3584, 512, 128), (4, 18944, 3584, 1),
-                             (512, 3584, 152064, 128), (4, 64, 16, 1)]:
-        splits, chunk = qm_ops.split_k(M, K, N, quantum, sms=132)
-        assert chunk % quantum == 0
-        assert (splits - 1) * chunk < K <= splits * chunk
-    assert qm_ops.split_k(4, 3584, 512, 128, sms=132)[0] == 28
+PLAN_CASES = [(M, K, N, fmt) for fmt in ("q8", "q4") for M, K, N in [
+    (1, 3584, 512), (4, 3584, 3584), (4, 18944, 3584), (4, 3584, 152064),
+    (8, 1024, 32), (16, 1024, 128), (16, 18944, 3584), (17, 2048, 1024),
+    (512, 3584, 18944), (2048, 1024, 2048), (4, 256, 136), (37, 384, 1024)]]
+
+
+@pytest.mark.parametrize("M,K,N,fmt", PLAN_CASES)
+def test_quant_matmul_plan(M, K, N, fmt):
+    """The regime follows the row count; the tiles cover N and K; a decode
+    block's K chunk is a multiple of the q4 group and no split is empty; the
+    staged x rows fit; small-N weights are split for enough blocks."""
+    group = 128 if fmt == "q4" else 0
+    p = qm_ops.plan(M, K, N, fmt, group, sms=132)
+    assert p.regime == ("decode" if M <= qm_ops.DECODE_MAX_M else "prefill")
+    if p.regime == "prefill":
+        assert p.splits == 1 and p.k_chunk == K
+        rows = 64 if M <= 64 else 128
+        assert p.grid == (-(-M // rows), -(-N // 128))
+        if fmt == "q4":
+            assert group % qm_ops.PF_BK == 0
+    else:
+        tiles, splits = p.grid
+        assert (tiles - 1) * qm_ops.DEC_COLS < N <= tiles * qm_ops.DEC_COLS
+        assert splits == p.splits
+        assert (splits - 1) * p.k_chunk < K <= splits * p.k_chunk
+        assert p.k_chunk % (group or qm_ops.DEC_UNIT) == 0
+        rows = 8 if M <= 8 else 16
+        assert rows * p.k_chunk * 2 <= qm_ops.DEC_X_BYTES
+        if tiles < 132 and K >= 2 * qm_ops.DEC_MIN_CHUNK:
+            assert splits > 1
+
+
+@pytest.mark.parametrize("fmt", ["q8", "q4"])
+@pytest.mark.parametrize("M,K,N", [(4, 3584, 512), (4, 3584, 152064),
+                                   (512, 1024, 256)])
+def test_quant_matmul_one_launch(monkeypatch, fmt, M, K, N):
+    """One call of the wrapper is one call of the library's launcher, with
+    the plan's regime and split, a workspace only when K is split, and one
+    count on the format's launch counter."""
+    from repro_torch import kernels
+    from repro_torch.quant.qtensor import quantize
+    calls = []
+
+    class FakeLib:
+        def quant_matmul(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(qm_ops, "_lib", FakeLib)
+    monkeypatch.setattr(qm_ops, "_stream", lambda device: 0)
+    monkeypatch.setattr(qm_ops, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(qm_ops, "_WORKSPACE", {})
+    t = quantize(torch.zeros((K, N)), fmt)
+    x = torch.zeros((M, K), dtype=torch.bfloat16)
+    before = kernels.launch_counts()[f"{fmt}_matmul"]
+    out = qm_ops.launch(x, t)
+    assert out.shape == (M, N) and out.dtype == torch.bfloat16
+    assert kernels.launch_counts()[f"{fmt}_matmul"] == before + 1
+    assert len(calls) == 1
+    args = calls[0]
+    p = qm_ops.plan(M, K, N, fmt, t.group, 132)
+    assert args[0] == qm_ops.FMT_CODES[fmt]
+    assert args[8:11] == (M, K, N)
+    assert args[12:15] == (int(p.regime == "decode"), p.splits, p.k_chunk)
+    assert (args[5] is None) == (p.splits == 1)
+    if p.splits > 1:
+        ws, counters = qm_ops._WORKSPACE[x.device]
+        assert ws.numel() >= p.splits * M * N
+        assert counters.numel() >= p.grid[0] and not counters.any()
