@@ -1,16 +1,21 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # build, check every kernel, serve, run
+    python3 chip_smoke.py --flash-baseline DIR   # and time DIR's older
+                                     # flash_attention.cu at the serve cases
 
 Phases, each raising on its first fault (the script then exits non-zero):
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
   2. build   — every CUDA source under src/repro_torch/csrc built at once
                with nvcc for sm_90a; the ptxas register/spill lines (the
-               quant-matmul kernels must not spill) and the tensor-core
-               instructions (HMMA, HGMMA) in each quant-matmul kernel's SASS;
+               quant-matmul and flash-attention kernels must not spill) and
+               the tensor-core instructions (HMMA, HGMMA) in each of their
+               kernels' SASS;
   3. kernels — each hand-written kernel against its plain PyTorch version on
                the same inputs at the serving path's shapes, with its time
-               (CUDA events), its bound and a library call's time;
+               (CUDA events; device time from the profiler where the host's
+               launch path would set the events' number), its bound and a
+               library call's time;
   4. serve   — full-width carboncall-qwen2-7b (random weights from a seed,
                quantized on the card leaf by leaf) served by the paged engine:
                8 temperature-0 requests, half sharing a 32-token prefix, a
@@ -19,6 +24,9 @@ Phases, each raising on its first fault (the script then exits non-zero):
                launch counters are set to 0 just before it and read just
                after, and every kernel that path runs must have launched; no
                step may fall back, and the invariant sweep must be clean.
+               Then a decode step's time per variant (CUDA events, profiler
+               breakdown) and a cold Q8 prefill of 4 x 64 and 4 x 256
+               tokens with the flash kernel's share of its device time.
   5. serve_mamba2 — full-width mamba2-370m (random weights drawn from a seed
                on the CPU, quantized on the card leaf by leaf) served by the
                dense engine (`kv_layout="auto"`): 8 temperature-0 requests
@@ -52,7 +60,11 @@ twice with bit-identical results; it includes sim_scores, at the runtime's index
 m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
 held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
 shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
-held to 0.05 on y and the final state.
+held to 0.05 on y and the final state; and prefill attention, whose two
+tensor-core products are first checked alone on one tile (PRODUCT_TOL),
+then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
+bit-identical repeats,
+timed by device time against the faster of two SDPA calls.
 The line before the last is the `kernels` JSON record (launches summed over
 the main paths of phases 4, 5 and 6); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
@@ -88,6 +100,23 @@ QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
 PAGED_BF16_TOL = 1e-3
 PAGED_INT8_TOL = 1e-2
 FLASH_TOL = 0.03
+# Rows late in a long prompt average thousands of positions, so their |out|
+# is ~0.03 and FLASH_TOL alone would miss a dropped K/V tile there: each row
+# (b, position, head) is also held to its RMS error over its RMS value. One
+# bf16 ulp is 0.4% of a value; dropping one of 64 tiles moves a row ~12%.
+FLASH_ROW_TOL = 0.02
+# (label, B, Sq, Skv, N, K, H, causal, window, cap); q_offset = Skv - Sq
+FLASH_CASES = [("serve", 4, S, S, 28, 4, 128, True, 0, 0.0)
+               for S in (32, 64, 128, 256)] + [
+    ("window+cap", 2, 256, 256, 28, 4, 128, True, 48, 50.0),
+    ("q_offset", 2, 100, 228, 28, 4, 128, True, 0, 0.0),
+    ("non-causal", 2, 77, 300, 28, 4, 128, False, 0, 0.0),
+    ("H64", 2, 256, 256, 8, 2, 64, True, 0, 0.0),
+    ("H256", 2, 200, 200, 8, 2, 256, True, 0, 0.0),
+    ("long", 1, 2048, 2048, 28, 4, 128, True, 0, 0.0),
+    ("long", 1, 4096, 4096, 28, 4, 128, True, 0, 0.0)]
+FLASH_PRODUCT_HEADS = (16, 64, 112, 128, 256)   # every head_dim in configs/
+PRODUCT_TOL = 1e-5              # max |err| / max |f32 product|
 SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
 SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (256, 33), (256, 64),
               (65536, 1), (65536, 3),
@@ -121,6 +150,8 @@ SOURCES = {
 }
 MODEL_KERNELS = ("q8_matmul", "q4_matmul", "paged_attention",
                  "flash_attention")
+# sources whose every kernel must show tensor-core instructions and no spill
+TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention")
 
 
 def fail(msg: str, code: int = 1):
@@ -185,18 +216,19 @@ def phase_build():
             if any(k in line for k in ("registers", "spill", "Compiling",
                                        "Performance")):
                 log(f"  ptxas[{name}]: {line.strip()}")
-    qm_report = build.ptxas_report("quant_matmul")
-    spills = [m.group(0) for m in re.finditer(
-        r"[1-9][0-9]* bytes spill (stores|loads)", qm_report)]
-    if not qm_report or spills:
-        fail(f"quant_matmul kernels: no ptxas report, or spills {spills}")
-    counts = sass_mma_counts(build.library_path("quant_matmul"))
-    for fn, n in sorted(counts.items()):
-        log(f"  sass[quant_matmul]: {n} HMMA/HGMMA in {fn}")
-    idle = [fn for fn, n in counts.items() if n == 0]
-    if not counts or idle:
-        fail(f"quant_matmul kernels without tensor-core instructions: "
-             f"{idle or 'no kernels found'}")
+    for name in TENSOR_CORE_SOURCES:
+        report = build.ptxas_report(name)
+        spills = [m.group(0) for m in re.finditer(
+            r"[1-9][0-9]* bytes spill (stores|loads)", report)]
+        if not report or spills:
+            fail(f"{name} kernels: no ptxas report, or spills {spills}")
+        counts = sass_mma_counts(build.library_path(name))
+        for fn, n in sorted(counts.items()):
+            log(f"  sass[{name}]: {n} HMMA/HGMMA in {fn}")
+        idle = [fn for fn, n in counts.items() if n == 0]
+        if not counts or idle:
+            fail(f"{name} kernels without tensor-core instructions: "
+                 f"{idle or 'no kernels found'}")
 
 
 def sass_mma_counts(lib_path) -> dict:
@@ -381,43 +413,148 @@ def check_paged(records):
                 rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = ms, pms, b, by
 
 
-def check_flash(records):
-    """Causal prefill at full-width heads (N=28, K=4, H=128), B=4, at the
-    32-, 64- and 128-token prompt buckets (the serving run admits at 64)."""
+def _flash_pairs(Sq, Skv, causal, window, q_offset) -> int:
+    """(query, key) pairs the mask keeps: the work this call's data needs."""
+    import torch
+    qp = q_offset + torch.arange(Sq)[:, None]
+    kp = torch.arange(Skv)[None, :]
+    ok = torch.ones((Sq, Skv), dtype=torch.bool)
+    if causal:
+        ok &= qp >= kp
+    if window > 0:
+        ok &= (qp - kp) < window
+    return int(ok.sum())
+
+
+def check_flash_products():
+    """The flash kernel's two tensor-core products alone on one 64-row tile
+    (`ops.products`, issued as the kernel issues them): S = Q K^T against
+    the f32 product of the same bf16 values, and O = bf16(S) V against the
+    f32 product, V read MN-major as one n = H product a k16 step, at every
+    head dim the configs use (16, 64, 112, 128, 256)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa
+    g = torch.Generator(device="cuda").manual_seed(6)
+    for H in FLASH_PRODUCT_HEADS:
+        q, k, v = (torch.randn((64, H), generator=g, device="cuda").to(
+            torch.bfloat16) for _ in range(3))
+        s, o = fa.products(q, k, v)
+        torch.cuda.synchronize()
+        s_ref = q.float() @ k.float().T
+        o_ref = s.to(torch.bfloat16).float() @ v.float()
+        es = ((s - s_ref).abs().max() / s_ref.abs().max()).item()
+        eo = ((o - o_ref).abs().max() / o_ref.abs().max()).item()
+        ok = es < PRODUCT_TOL and eo < PRODUCT_TOL
+        log(f"  flash products H={H}: S rel_err={es:.2e} O rel_err={eo:.2e} "
+            f"(tol {PRODUCT_TOL}) {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash products H={H}: {es} {eo}")
+
+
+def check_flash(records, baseline=None):
+    """Prefill attention against its plain version at FLASH_CASES: the
+    serve path's cold prefills (carboncall-qwen2-7b's 28 x 128 heads over 4
+    kv heads, B = 4 at the 32/64/128 prompt buckets and max_seq 256), the
+    kernel's other options (window + softcap, q_offset with Sq < Skv,
+    non-causal with Sq != Skv, head dims 64 and 256, Skv not a multiple of
+    the 64-key tile) and long prompts, within FLASH_TOL and, row by row,
+    FLASH_ROW_TOL. Each case is launched twice with bit-identical results. Times by device time (torch.profiler, the
+    kernel alone) with CUDA events beside; the library call is the faster
+    of SDPA with enable_gqa and SDPA on K/V repeated to N heads outside the
+    timed call, each summed over every device kernel it runs. The kernels
+    line keeps the B = 4, S = 64 row. `baseline`, a directory holding an
+    older flash_attention.cu with the same C entry, times that source too
+    at the serve cases, before and after this one (device time)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fa
     rec = records["flash_attention"]
+    old_lib = None
+    if baseline is not None:
+        from pathlib import Path
+        from repro_torch.kernels import build
+        old_lib = build.load("flash_attention", {"flash_attention":
+                             fa.SIGNATURES["flash_attention"]},
+                             csrc=Path(baseline).resolve())
     g = torch.Generator(device="cuda").manual_seed(3)
-    B, N, K, H = 4, 28, 4, 128
-    for S in (32, 64, 128):
-        q = torch.randn((B, S, N, H), generator=g, device="cuda").to(torch.bfloat16)
-        k = torch.randn((B, S, K, H), generator=g, device="cuda").to(torch.bfloat16)
-        v = torch.randn((B, S, K, H), generator=g, device="cuda").to(torch.bfloat16)
-        run = lambda: fa.launch(q, k, v, causal=True)  # noqa: E731
-        plain = lambda: fa.flash_attention_ref(q, k, v, causal=True)  # noqa: E731
-        got, want = run(), plain()
+    for label, B, Sq, Skv, N, K, H, causal, window, cap in FLASH_CASES:
+        off = Skv - Sq
+        q = torch.randn((B, Sq, N, H), generator=g, device="cuda").to(torch.bfloat16)
+        k = torch.randn((B, Skv, K, H), generator=g, device="cuda").to(torch.bfloat16)
+        v = torch.randn((B, Skv, K, H), generator=g, device="cuda").to(torch.bfloat16)
+        kw = dict(causal=causal, window=window, cap=cap, q_offset=off)
+        run = lambda: fa.launch(q, k, v, **kw)  # noqa: E731
+        plain = lambda: fa.flash_attention_ref(q, k, v, **kw)  # noqa: E731
+        got, again, want = run(), run(), plain()
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = bool(torch.isfinite(got).all().item()) and err < FLASH_TOL
-        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-            qt, kt, vt, is_causal=True, enable_gqa=True)
-        ms = time_ms(run, iters=50)
-        pms = time_ms(plain, iters=10)
-        lms = time_ms(lib, iters=50)
-        pairs = S * (S + 1) // 2
+        diff = got.float() - want.float()
+        err = diff.abs().max().item()
+        row_rms = want.float().square().mean(-1).sqrt()
+        row_err = (diff.square().mean(-1).sqrt()
+                   / row_rms.clamp_min(1e-6)).max().item()
+        same = torch.equal(got, again)
+        ok = bool(torch.isfinite(got).all().item()) and err < FLASH_TOL \
+            and row_err < FLASH_ROW_TOL and same
+        del got, again, want, diff, row_rms
+        p = fa.plan(B, Sq, Skv, N, K, H)
+        dev_ms = kernel_device_ms(run, "flash_kernel", n=20)
+        ms = time_ms(run, iters=20)
+        pairs = _flash_pairs(Sq, Skv, causal, window, off)
+        flops = 4.0 * B * N * H * pairs
         nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-        b, by = bound_ms(nbytes, 4.0 * B * N * H * pairs, BF16_FLOPS)
-        log(f"  flash_attention S={S}: max_abs_err={err:.2e} (tol {FLASH_TOL}) ms={ms:.4f} "
-            f"plain_ms={pms:.4f} sdpa_ms={lms:.4f} bound_ms={b:.5f} ({by}) "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            fail(f"flash_attention S={S} err {err}")
-        rec.max_abs_err = max(rec.max_abs_err, err)
-        if S == 64:                        # the serving run's prompt bucket
-            rec.ms, rec.plain_ms, rec.library_ms = ms, pms, lms
+        b, by = bound_ms(nbytes, flops, BF16_FLOPS)
+        line = (f"  flash_attention {label} B={B} Sq={Sq} Skv={Skv} N={N} "
+                f"K={K} H={H} causal={int(causal)} window={window} cap={cap} "
+                f"q_offset={off} grid={p.grid}: max_abs_err={err:.2e} "
+                f"(tol {FLASH_TOL}) row_rms_rel={row_err:.2e} "
+                f"(tol {FLASH_ROW_TOL}) "
+                f"repeat {'bit-identical' if same else 'DIFFERS'} "
+                f"device_ms={dev_ms:.4f} ms={ms:.4f} "
+                f"tflops={flops / dev_ms / 1e9:.1f} bound_ms={b:.5f} ({by})")
+        lib_dev = lib_ms = None
+        if window == 0 and cap == 0.0 and (off == 0 or not causal):
+            # SDPA's causal mask is the upper-left one: only q_offset 0
+            qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+            kr = kt.repeat_interleave(N // K, dim=1)
+            vr = vt.repeat_interleave(N // K, dim=1)
+            gqa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal, enable_gqa=True)
+            rep = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kr, vr, is_causal=causal)
+            dev = {n: kernel_device_ms(f, "", n=20)
+                   for n, f in (("gqa", gqa), ("repeated", rep))}
+            evs = {n: time_ms(f, iters=20)
+                   for n, f in (("gqa", gqa), ("repeated", rep))}
+            lib_dev = min(dev.values())
+            lib_ms = min(evs.values())
+            line += (f" sdpa_device_ms gqa={dev['gqa']:.4f} "
+                     f"repeated={dev['repeated']:.4f} sdpa_ms "
+                     f"gqa={evs['gqa']:.4f} repeated={evs['repeated']:.4f} "
+                     f"kernel/sdpa={dev_ms / lib_dev:.3f} (device)")
+            del qt, kt, vt, kr, vr
+        if old_lib is not None and label == "serve":
+            out = torch.empty_like(q)
+            st = torch.cuda.current_stream().cuda_stream
+            old = lambda: build.check(old_lib.flash_attention(  # noqa: E731
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                Sq, Skv, N, K, H, int(causal), window, cap, off, st), "old")
+            before = kernel_device_ms(old, "flash", n=20)
+            now = kernel_device_ms(run, "flash_kernel", n=20)
+            after = kernel_device_ms(old, "flash", n=20)
+            line += (f" baseline_device_ms={before:.4f}/{after:.4f} "
+                     f"(this source between: {now:.4f})")
+        if label == "serve" and Sq == 64:   # the serving run's bucket
+            pms = time_ms(plain, iters=10)
+            line += f" plain_ms={pms:.4f}"
+            rec.ms, rec.plain_ms, rec.library_ms = dev_ms, pms, lib_dev
             rec.bound_ms, rec.bound_by = b, by
+        log(f"{line} {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            fail(f"flash_attention {label} B={B} Sq={Sq} Skv={Skv} H={H}: "
+                 f"err {err}, row err {row_err}, repeat bit-identical {same}")
+        rec.max_abs_err = max(rec.max_abs_err, err)
+        del q, k, v
+    torch.cuda.empty_cache()
 
 
 def _sim_inputs(g, N, m, d=256, pad=16):
@@ -677,6 +814,36 @@ def decode_step_ms(cfg, params, kv_cache_dtype, label):
     return ms
 
 
+def prefill_attention_share(cfg, params, label, B=4, S=64):
+    """One cold prefill of B x S prompt tokens (the serve path's admission
+    at its 64-token bucket): its time by CUDA events, its kernels' busy time
+    and the flash kernel's part of it (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    toks = torch.randint(2, cfg.vocab_size, (B, S),
+                         generator=torch.Generator().manual_seed(4)).cuda()
+    pre = lambda: model.prefill(params, {"tokens": toks},  # noqa: E731
+                                RuntimeConfig())
+    ms = time_ms(pre, iters=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pre()
+        torch.cuda.synchronize()
+    busy = flash = 0.0
+    calls = 0
+    for e in prof.key_averages():
+        busy += e.self_device_time_total / 1e3
+        if "flash_kernel" in e.key:
+            flash += e.self_device_time_total / 1e3
+            calls += e.count
+    log(f"  cold prefill {label} {B} x {S}: {ms:.2f} ms (CUDA events), "
+        f"kernels busy {busy:.3f} ms, flash_attention {flash:.4f} ms over "
+        f"{calls} launches: {flash / busy:.4f} of busy time, "
+        f"{flash / ms:.4f} of the prefill")
+
+
 def profile_window(step, label, n: int = 3):
     """Where a step's time goes: device self time by kernel over `n` steps
     (torch.profiler), and the share of the window with no kernel."""
@@ -741,6 +908,8 @@ def phase_serve():
     times = {}
     for fmt in ("q8", "q4"):
         times[fmt] = decode_step_ms(cfg, variants[fmt], "bf16", fmt)
+    for S in (64, 256):
+        prefill_attention_share(cfg, variants["q8"], "q8", S=S)
     del variants
     torch.cuda.empty_cache()
     return launches, times
@@ -1031,6 +1200,12 @@ def phase_runtime(device="cuda", model_cfg=None):
 
 
 def main():
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--flash-baseline", metavar="DIR",
+                    help="a csrc directory with an older flash_attention.cu "
+                         "(same C entry) to time beside this one")
+    baseline = ap.parse_args().flash_baseline
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py", code=2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1045,7 +1220,8 @@ def main():
     log("kernels: each against its plain version")
     check_quant_matmul(records)
     check_paged(records)
-    check_flash(records)
+    check_flash_products()
+    check_flash(records, baseline)
     check_sim_scores(records)
     check_ssd(records)
     serve_launches, _ = phase_serve()

@@ -65,6 +65,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -162,33 +164,12 @@ __device__ __forceinline__ float comp(const float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ void cp_async8(void* dst, const void* src,
                                           bool ok) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(ok ? 8 : 0)
                : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---------------------------------------------------------------------------
@@ -486,63 +467,7 @@ struct PrefillSmem {
 // chunk c ^ (r % 8), the canonical 128-byte swizzle of a K-major wgmma
 // operand (8-row atoms of 1 KB, the tile 1 KB aligned)
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * PF_BK + ((c ^ (r & 7)) << 3);
-}
-
-// wgmma shared-memory descriptor of a K-major, 128-byte-swizzled operand:
-// start address, 1 KB between 8-row groups, swizzle mode 1 (128 B)
-__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
-  const uint32_t a = smem_u32(p);
-  return (uint64_t)((a & 0x3FFFFu) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// keep the compiler from moving accesses of r across the async window
-__device__ __forceinline__ void fence_reg(float& r) {
-  asm volatile("" : "+f"(r)::"memory");
-}
-// The A fragments a wgmma reads after it is issued: a use after the wait
-// that retires it keeps their registers from being given to other values
-// while it runs.
-__device__ __forceinline__ void keep_live(const uint32_t (&a)[4][4]) {
-  asm volatile("" ::"r"(a[0][0]), "r"(a[0][1]), "r"(a[0][2]), "r"(a[0][3]), "r"(a[1][0]), "r"(a[1][1]), "r"(a[1][2]), "r"(a[1][3]), "r"(a[2][0]), "r"(a[2][1]), "r"(a[2][2]), "r"(a[2][3]), "r"(a[3][0]), "r"(a[3][1]), "r"(a[3][2]), "r"(a[3][3]) : "memory");
-}
-
-// D (64 x n, f32) = A (64 x 16, bf16, registers) * B (16 x n, bf16, shared
-// memory, K-major) + (accumulate ? D : 0), n = 128 or 64 (the accumulator's
-// length picks it)
-__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t desc,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(accumulate));
-}
-
-__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint32_t a0,
-                                           uint32_t a1, uint32_t a2,
-                                           uint32_t a3, uint64_t desc,
-                                           int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc), "r"(accumulate));
+  return sw128(r, c) >> 1;  // PF_BK bf16 = 128-byte rows
 }
 
 template <int FMT, int BM, bool VEC16>
@@ -666,7 +591,7 @@ qmm_prefill_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
 
   for (int kt = 0; kt < ktiles; ++kt) {
     cp_async_wait<PF_STAGES - 2>();
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    fence_proxy_async();
     __syncthreads();  // tile kt landed; every warpgroup is done with kt - 1
     {
       const int nk = kt + PF_STAGES - 1;
@@ -772,18 +697,6 @@ qmm_prefill_kernel(const bf16* __restrict__ x, const uint8_t* __restrict__ w,
 // ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
-
-// Raise a kernel's dynamic shared-memory limit when a launch needs more than
-// it was given so far (above 48 KB only by opting in).
-template <typename Kernel>
-int ensure_smem(Kernel kernel, int bytes, int& granted) {
-  if (bytes <= 48 * 1024 || bytes <= granted) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  granted = bytes;
-  return 0;
-}
 
 struct Args {
   const bf16* x;

@@ -4,8 +4,9 @@ Each source under `src/repro_torch/csrc/` compiles on its own into a shared
 library with a plain C interface (`nvcc -shared`, `sm_90a`), which takes a
 few seconds per file against minutes for an extension that includes PyTorch's
 headers. Libraries land in `build/repro_torch/` at the repository root (listed
-in `.gitignore`), named by a digest of source and flags, so a rebuilt source
-never loads a stale library. Building happens at first use — never at import
+in `.gitignore`), named by a digest of the source, the headers it includes
+from `csrc/` and the flags, so a changed source or header never loads a
+stale library. Building happens at first use — never at import
 — so the CPU-only test run imports every module without a compiler.
 
 `build_all` starts one nvcc per source at once and returns each build's
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -52,26 +54,50 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
 
 
-def build_all(names: Iterable[str] = SOURCES) -> Dict[str, str]:
+def source_files(name: str, csrc: Path = CSRC) -> List[Path]:
+    """`csrc/<name>.cu` and every header it includes from `csrc/` by a
+    quoted `#include`, transitively, in the order first reached."""
+    files: List[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            dep = path.parent / inc.decode()
+            if dep.exists():
+                todo.append(dep)
+    return files
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of `csrc/<name>.cu` lives: named by a digest of the
+    source, its headers and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in source_files(name, csrc):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Iterable[str] = SOURCES,
+              csrc: Path = CSRC) -> Dict[str, str]:
     """Compile every source not yet built, all nvcc processes at once.
     Returns {name: ptxas report} for the sources built by this call."""
     names = list(names)
-    todo = [n for n in names if not library_path(n).exists()]
+    todo = [n for n in names if not library_path(n, csrc).exists()]
     if not todo:
         return {}
     nvcc = nvcc_path()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs: List = []
     for n in todo:
-        out = library_path(n)
+        out = library_path(n, csrc)
         tmp = out.with_suffix(f".tmp{os.getpid()}")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{n}.cu")]
         procs.append((n, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     failed = []
@@ -96,20 +122,23 @@ def ptxas_report(name: str) -> str:
     return path.read_text() if path.exists() else ""
 
 
-def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
+def load(name: str, signatures: Dict[str, List],
+         csrc: Path = CSRC) -> ctypes.CDLL:
     """The loaded library for `csrc/<name>.cu`, built on first use, with
     `argtypes` set from `signatures` ({function: [ctypes types]}) and every
-    function returning its cudaError_t as an int."""
+    function returning its cudaError_t as an int. Another `csrc` directory
+    (an older version of a source, to time against) builds beside it."""
+    key = name if csrc is CSRC else f"{name}@{csrc}"
     with _LOCK:
-        lib = _LIBS.get(name)
+        lib = _LIBS.get(key)
         if lib is None:
-            build_all([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            build_all([name], csrc)
+            lib = ctypes.CDLL(str(library_path(name, csrc)))
             for fn, argtypes in signatures.items():
                 f = getattr(lib, fn)
                 f.argtypes = argtypes
                 f.restype = ctypes.c_int
-            _LIBS[name] = lib
+            _LIBS[key] = lib
         return lib
 
 

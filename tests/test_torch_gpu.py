@@ -92,18 +92,71 @@ def test_paged_attention_kernel(gen, int8, window, cap):
     assert (got.float() - want.float()).abs().max().item() < 0.03
 
 
-@pytest.mark.parametrize("Sq,Skv,window,cap", [(32, 32, 0, 0.0),
-                                               (40, 100, 24, 50.0)])
-def test_flash_attention_kernel(gen, Sq, Skv, window, cap):
-    q = torch.randn((2, Sq, 8, 128), generator=gen, device="cuda").bfloat16()
-    k = torch.randn((2, Skv, 2, 128), generator=gen, device="cuda").bfloat16()
-    v = torch.randn((2, Skv, 2, 128), generator=gen, device="cuda").bfloat16()
-    got = fa_ops.flash_attention(q, k, v, window=window, cap=cap,
-                                 q_offset=Skv - Sq)
-    want = fa_ops.flash_attention_ref(q, k, v, window=window, cap=cap,
-                                      q_offset=Skv - Sq)
+# (B, Sq, Skv, N, K, H, causal, window, cap), q_offset = Skv - Sq: GQA
+# groups of 4 and 7, head dims 16-256, Skv not a multiple of the 64-key
+# tile, window + cap + q_offset, non-causal, MHA
+FLASH_KERNEL_CASES = [
+    (2, 32, 32, 8, 2, 128, True, 0, 0.0),
+    (2, 40, 100, 8, 2, 128, True, 24, 50.0),
+    (4, 64, 64, 28, 4, 128, True, 0, 0.0),
+    (1, 96, 150, 14, 2, 64, True, 0, 0.0),
+    (2, 77, 77, 14, 2, 112, True, 0, 0.0),
+    (1, 130, 130, 8, 2, 256, True, 0, 0.0),
+    (1, 70, 200, 8, 2, 256, True, 40, 30.0),
+    (2, 50, 50, 4, 1, 16, True, 0, 0.0),
+    (2, 77, 130, 14, 2, 112, False, 0, 0.0),
+    (1, 300, 300, 8, 8, 64, True, 48, 50.0),
+    (1, 600, 600, 28, 4, 128, True, 0, 0.0)]
+
+
+def _flash_case(gen, B, Sq, Skv, N, K, H):
+    q = torch.randn((B, Sq, N, H), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, Skv, K, H), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, Skv, K, H), generator=gen, device="cuda").bfloat16()
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,Sq,Skv,N,K,H,causal,window,cap",
+                         FLASH_KERNEL_CASES)
+def test_flash_attention_kernel(gen, B, Sq, Skv, N, K, H, causal, window,
+                                cap):
+    q, k, v = _flash_case(gen, B, Sq, Skv, N, K, H)
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=Skv - Sq)
+    before = kernels.launch_counts()["flash_attention"]
+    got = fa_ops.flash_attention(q, k, v, **kw)
+    want = fa_ops.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert torch.isfinite(got).all()
     assert (got.float() - want.float()).abs().max().item() < 0.03
+
+
+@pytest.mark.parametrize("B,Sq,Skv,N,K,H,causal,window,cap",
+                         FLASH_KERNEL_CASES[:3] + FLASH_KERNEL_CASES[5:7])
+def test_flash_attention_repeat_is_bit_identical(gen, B, Sq, Skv, N, K, H,
+                                                 causal, window, cap):
+    """No split over keys and no atomics: launches agree bit for bit."""
+    q, k, v = _flash_case(gen, B, Sq, Skv, N, K, H)
+    kw = dict(causal=causal, window=window, cap=cap, q_offset=Skv - Sq)
+    first = fa_ops.flash_attention(q, k, v, **kw)
+    for _ in range(3):
+        assert torch.equal(fa_ops.flash_attention(q, k, v, **kw), first)
+
+
+@pytest.mark.parametrize("H", [16, 64, 112, 128, 256])
+def test_flash_attention_products(gen, H):
+    """The two tensor-core products alone, as the kernel issues them:
+    S = Q K^T (K-major operands) and O = bf16(S) V (V read MN-major, one
+    n = H product a k16 step) against f32 products of the same bf16
+    values."""
+    q, k, v = (torch.randn((64, H), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    s, o = fa_ops.products(q, k, v)
+    torch.cuda.synchronize()
+    s_ref = q.float() @ k.float().T
+    o_ref = s.bfloat16().float() @ v.float()
+    assert ((s - s_ref).abs().max() / s_ref.abs().max()).item() < 1e-5
+    assert ((o - o_ref).abs().max() / o_ref.abs().max()).item() < 1e-5
 
 
 @pytest.mark.parametrize("N,d,m,k", [(256, 256, 1, 16), (256, 256, 3, 32),

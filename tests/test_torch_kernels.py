@@ -5,6 +5,8 @@ Pallas kernel in interpret mode, on the same numpy inputs.
 Tolerances are those of tests/test_kernels.py: quant-matmul relative < 0.02,
 flash < 0.03, paged f32 pools < 2e-5, paged int8 pools < 0.02.
 """
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +20,8 @@ from repro.kernels.quant_matmul import ops as ref_qm_ops
 from repro.kernels.quant_matmul import ref as ref_qm_ref
 from repro.quant import quantize as ref_quantize
 
+from repro_torch import kernels
+from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant_matmul import ops as qm_ops
@@ -60,6 +64,10 @@ def test_quant_matmul_plain(fmt, M, K, N):
     [
         (1, 128, 128, 8, 8, 32, True, 48, 50.0),    # window + softcap
         (2, 64, 128, 4, 1, 32, True, 0, 0.0),       # q_offset, MQA
+        (1, 32, 32, 14, 2, 64, True, 0, 0.0),       # G = 7, as qwen2-7b
+        (2, 24, 24, 4, 2, 16, True, 0, 0.0),        # H = 16
+        (1, 40, 40, 4, 1, 112, True, 0, 0.0),       # H = 112
+        (2, 24, 56, 4, 2, 32, False, 0, 0.0),       # non-causal, Sq != Skv
     ])
 def test_flash_attention_plain(B, Sq, Skv, N, K, H, causal, window, cap):
     rng = np.random.default_rng(Sq * Skv + N)
@@ -214,3 +222,124 @@ def test_quant_matmul_one_launch(monkeypatch, fmt, M, K, N):
         ws, counters = qm_ops._WORKSPACE[x.device]
         assert ws.numel() >= p.splits * M * N
         assert counters.numel() >= p.grid[0] and not counters.any()
+
+
+# the serve path's cold prefills (qwen2-7b heads, prompt buckets and
+# max_seq), long prompts, and the other families' head dims and groups
+FLASH_PLAN_CASES = [
+    (4, 32, 32, 28, 4, 128, True, 0), (4, 64, 64, 28, 4, 128, True, 0),
+    (4, 128, 128, 28, 4, 128, True, 0), (4, 256, 256, 28, 4, 128, True, 0),
+    (1, 2048, 2048, 28, 4, 128, True, 0), (1, 4096, 4096, 28, 4, 128, True, 0),
+    (2, 40, 100, 8, 2, 128, True, 24), (2, 100, 100, 8, 8, 64, True, 48),
+    (2, 77, 130, 14, 2, 112, False, 0), (1, 300, 300, 8, 2, 256, True, 0),
+    (1, 50, 50, 4, 1, 16, True, 0), (3, 1500, 1500, 20, 20, 64, False, 0)]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,N,K,H,causal,window", FLASH_PLAN_CASES)
+def test_flash_attention_plan(B, Sq, Skv, N, K, H, causal, window):
+    """The grid covers every (batch, position, head) exactly once, as the
+    kernel maps its 1-D block index (head fastest, then batch, then row
+    tiles from the last); a block's tiles fit in shared memory, two blocks
+    an SM where the head dim is at most 128."""
+    p = fa_ops.plan(B, Sq, Skv, N, K, H)
+    tiles, heads, batch = p.grid
+    assert (heads, batch) == (N, B)
+    assert p.smem == fa_ops.smem_bytes(H) <= fa_ops.SMEM_MAX
+    assert H > 128 or 2 * p.smem <= 228 * 1024
+    seen = np.zeros((B, Sq, N), np.int64)
+    for blk in range(tiles * heads * batch):
+        n, rest = blk % N, blk // N
+        b, r0 = rest % B, (tiles - 1 - rest // B) * fa_ops.ROW_TILE
+        rows = np.arange(r0, min(r0 + fa_ops.ROW_TILE, Sq))
+        np.add.at(seen, (b, rows, n), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,S,want", [(4, 32, (1, 28, 4)),
+                                      (4, 64, (1, 28, 4)),
+                                      (4, 128, (2, 28, 4)),
+                                      (4, 256, (4, 28, 4)),
+                                      (1, 4096, (64, 28, 1))])
+def test_flash_attention_plan_at_serve_shapes(B, S, want):
+    """carboncall-qwen2-7b's cold prefills: one head's 64 positions a
+    block, 112 blocks at B 4 up to the 64-token bucket (under one wave of
+    132 SMs), 448 at max_seq 256; 112 KB of shared memory a block."""
+    p = fa_ops.plan(B, S, S, 28, 4, 128)
+    assert p.grid == want and p.smem == 112 * 1024
+
+
+def _fake_flash_lib(monkeypatch, calls):
+    class FakeLib:
+        def flash_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(fa_ops, "_lib", FakeLib)
+    monkeypatch.setattr(fa_ops, "_stream", lambda device: 0)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,N,K,H,causal,window,cap,off", [
+    (4, 64, 64, 28, 4, 128, True, 0, 0.0, 0),
+    (2, 40, 100, 8, 2, 64, True, 24, 50.0, 60),
+    (1, 30, 70, 6, 6, 256, False, 0, 0.0, 0)])
+def test_flash_attention_one_launch(monkeypatch, B, Sq, Skv, N, K, H, causal,
+                                    window, cap, off):
+    """One call of the wrapper is one call of the library's launcher with
+    the call's shapes and options, and one count on the launch counter."""
+    calls = []
+    _fake_flash_lib(monkeypatch, calls)
+    q = torch.zeros((B, Sq, N, H), dtype=torch.bfloat16)
+    k = torch.zeros((B, Skv, K, H), dtype=torch.bfloat16)
+    before = kernels.launch_counts()["flash_attention"]
+    out = fa_ops.launch(q, k, k.clone(), causal=causal, window=window,
+                        cap=cap, q_offset=off)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert kernels.launch_counts()["flash_attention"] == before + 1
+    assert len(calls) == 1
+    args = calls[0]
+    assert args[4:12] == (B, Sq, Skv, N, K, H, int(causal), window)
+    assert args[12:] == (cap, off, 0)
+    assert args[3] == out.data_ptr()
+
+
+@pytest.mark.parametrize("case", ["H72", "H272", "f16", "build"])
+def test_flash_attention_refuses(monkeypatch, case):
+    """The kernel path raises for what the kernel does not take, and when
+    the library does not build; it never falls back to the plain version
+    and counts no launch."""
+    calls = []
+    _fake_flash_lib(monkeypatch, calls)
+    H = {"H72": 72, "H272": 272}.get(case, 128)
+    dt = torch.float16 if case == "f16" else torch.bfloat16
+    q = torch.zeros((1, 16, 4, H), dtype=dt)
+    k = torch.zeros((1, 16, 2, H), dtype=dt)
+    if case == "build":
+        def broken():
+            raise build.KernelBuildError("nvcc failed")
+        monkeypatch.setattr(fa_ops, "_lib", broken)
+    want = {"f16": TypeError, "build": build.KernelBuildError}.get(
+        case, ValueError)
+    before = kernels.launch_counts()["flash_attention"]
+    with pytest.raises(want):
+        fa_ops.launch(q, k, k)
+    assert kernels.launch_counts()["flash_attention"] == before
+    assert not calls
+
+
+def test_library_path_hashes_headers(tmp_path):
+    """A library's name follows the headers its source includes: a changed
+    header gives a new path, so a stale build is never loaded."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    header = csrc / "wgmma.cuh"
+    names = [p.name for p in build.source_files("flash_attention", csrc)]
+    assert names == ["flash_attention.cu", "wgmma.cuh"]
+    before = {n: build.library_path(n, csrc) for n in build.SOURCES}
+    assert before["flash_attention"] == build.library_path("flash_attention")
+    header.write_text(header.read_text() + "\n// changed\n")
+    after = {n: build.library_path(n, csrc) for n in build.SOURCES}
+    for n in build.SOURCES:
+        uses = header in build.source_files(n, csrc)
+        assert (after[n] != before[n]) == uses, n
+    assert after["flash_attention"] != before["flash_attention"]
+    assert after["quant_matmul"] != before["quant_matmul"]
