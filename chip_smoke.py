@@ -3,14 +3,16 @@
     python3 chip_smoke.py            # build, check every kernel, serve, run
     python3 chip_smoke.py --flash-baseline DIR   # and time DIR's older
                                      # flash_attention.cu at the serve cases
+    python3 chip_smoke.py --paged-baseline DIR [DIR ...]  # and time each
+                                     # DIR's paged_attention.cu at its cases
 
 Phases, each raising on its first fault (the script then exits non-zero):
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
   2. build   — every CUDA source under src/repro_torch/csrc built at once
                with nvcc for sm_90a; the ptxas register/spill lines (the
-               quant-matmul and flash-attention kernels must not spill) and
-               the tensor-core instructions (HMMA, HGMMA) in each of their
-               kernels' SASS;
+               quant-matmul, flash-attention and paged-attention kernels
+               must not spill) and the tensor-core instructions (HMMA,
+               HGMMA) in each of their kernels' SASS;
   3. kernels — each hand-written kernel against its plain PyTorch version on
                the same inputs at the serving path's shapes, with its time
                (CUDA events; device time from the profiler where the host's
@@ -24,8 +26,9 @@ Phases, each raising on its first fault (the script then exits non-zero):
                launch counters are set to 0 just before it and read just
                after, and every kernel that path runs must have launched; no
                step may fall back, and the invariant sweep must be clean.
-               Then a decode step's time per variant (CUDA events, profiler
-               breakdown) and a cold Q8 prefill of 4 x 64 and 4 x 256
+               Then a decode step's time per variant and KV type (CUDA
+               events, profiler breakdown with the paged kernel's launches
+               and share) and a cold Q8 prefill of 4 x 64 and 4 x 256
                tokens with the flash kernel's share of its device time.
   5. serve_mamba2 — full-width mamba2-370m (random weights drawn from a seed
                on the CPU, quantized on the card leaf by leaf) served by the
@@ -60,7 +63,11 @@ twice with bit-identical results; it includes sim_scores, at the runtime's index
 m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
 held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
 shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
-held to 0.05 on y and the final state; and prefill attention, whose two
+held to 0.05 on y and the final state; decode attention at PAGED_CASES,
+bf16 and int8 pools, within PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row,
+PAGED_ROW_TOL at the planned split, one split and nb splits, with
+bit-identical repeats, timed by device time against its byte bound and the
+gathered-SDPA yardstick (two calls); and prefill attention, whose two
 tensor-core products are first checked alone on one tile (PRODUCT_TOL),
 then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
 bit-identical repeats,
@@ -99,6 +106,30 @@ QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
 # so |out| reaches ~3, where one ulp is 0.016.
 PAGED_BF16_TOL = 1e-3
 PAGED_INT8_TOL = 1e-2
+# Rows of long chains average thousands of positions, so |out| is ~0.02 and
+# the absolute tolerances alone would miss a dropped pool block: each row
+# (b, query head) is also held to its RMS error over its RMS value.
+PAGED_ROW_TOL = 0.02
+# (label, B, K, G, H, bs, nb, lengths, window, cap), each with bf16 and int8
+# pools. A row of length 1 is the dead row, parked on the scratch block 0.
+PAGED_SERVE = (4, 4, 7, 128, 16, 16, [1, 129, 200, 256])
+PAGED_CASES = [
+    ("serve", *PAGED_SERVE, 0, 0.0),
+    ("serve", *PAGED_SERVE, 48, 0.0),
+    ("window+cap", *PAGED_SERVE, 48, 50.0),
+    ("bs32", 4, 4, 7, 128, 32, 8, [1, 129, 200, 256], 0, 0.0),
+    ("llama", 4, 8, 4, 128, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    ("MQA", 4, 1, 8, 128, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    ("H64", 4, 4, 4, 64, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    ("H256", 4, 2, 4, 256, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    # head dims below their instantiation's 64 / 128: the reduced configs'
+    # 16 and zamba2-7b's 112 (MHA, 32 kv heads)
+    ("H16", 4, 1, 4, 16, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    ("H112", 4, 32, 1, 112, 16, 16, [1, 129, 200, 256], 0, 0.0),
+    ("long", 8, 4, 7, 128, 16, 256,
+     [4096, 4001, 3584, 4096, 3000, 4095, 3777, 4096], 0, 0.0),
+    ("long", 32, 4, 7, 128, 16, 64,
+     [1024 - (37 * i) % 300 for i in range(32)], 0, 0.0)]
 FLASH_TOL = 0.03
 # Rows late in a long prompt average thousands of positions, so their |out|
 # is ~0.03 and FLASH_TOL alone would miss a dropped K/V tile there: each row
@@ -151,7 +182,7 @@ SOURCES = {
 MODEL_KERNELS = ("q8_matmul", "q4_matmul", "paged_attention",
                  "flash_attention")
 # sources whose every kernel must show tensor-core instructions and no spill
-TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention")
+TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
 
 
 def fail(msg: str, code: int = 1):
@@ -367,50 +398,200 @@ def _paged_inputs(g, B, K, G, H, bs, nb, lengths, int8):
     return q, kf.to(torch.bfloat16), vf.to(torch.bfloat16), None, None, bt, lens
 
 
-def check_paged(records):
-    """bf16 and int8 pools at full-width heads (K=4, G=7, H=128), bs=16 and
-    a 16-block chain (two splits): lengths that cross the split boundary, a
-    dead row parked on scratch block 0 (length 1), and a sliding window."""
+def _paged_errors(got, want):
+    """max |err|, and the worst (row, head)'s RMS error over its RMS value."""
+    diff = got.float() - want.float()
+    rms = want.float().square().mean(-1).sqrt().clamp_min(1e-6)
+    return (diff.abs().max().item(),
+            (diff.square().mean(-1).sqrt() / rms).max().item())
+
+
+def _gathered_sdpa(q, kp, vp, ks, vs, bt, lens, window):
+    """The yardstick of two calls: gather the chains (and dequantize int8),
+    then scaled_dot_product_attention with enable_gqa and a length/window
+    mask (built outside the timed call)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ref import gather_pool
+    B, K, G, H = q.shape
+    S = bt.shape[1] * kp.shape[1]
+    pos = torch.arange(S, device=q.device)[None, :]
+    ok = pos < lens[:, None]
+    if window > 0:
+        ok &= pos > lens[:, None] - 1 - window
+    mask = ok[:, None, None, :]
+    qt = q.reshape(B, K * G, 1, H)
+
+    def run():
+        k, v = gather_pool(kp, bt), gather_pool(vp, bt)
+        if ks is not None:
+            k = (k * gather_pool(ks, bt)[..., None]).to(torch.bfloat16)
+            v = (v * gather_pool(vs, bt)[..., None]).to(torch.bfloat16)
+        return F.scaled_dot_product_attention(
+            qt, k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+    return run
+
+
+def check_paged(records, baselines=()):
+    """Decode attention against its plain version at PAGED_CASES, bf16 and
+    int8 pools: carboncall-qwen2-7b's heads (K 4, G 7, H 128) at the serving
+    shape (B 4, block size 16, 16-block chains, a dead row on scratch block
+    0) with windows 0 and 48 and a softcap, block size 32, llama-3.1-8b's
+    heads (K 8, G 4), MQA (K 1, G 8), head dims 64 and 256, the reduced
+    configs' 16 and zamba2-7b's 112 (MHA, K 32), and long chains
+    (B 8 x ~4096 and B 32 x ~1024 positions). Each case is held to
+    PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row, PAGED_ROW_TOL, at the
+    planned split, at one split and at nb splits, and launched twice with
+    bit-identical results. Times by device time (torch.profiler, the kernel
+    alone) with CUDA events beside, the byte bound of the positions the
+    call needs, and the gathered-SDPA yardstick (gather + SDPA: two calls,
+    all their device kernels summed; not for softcaps). The kernels line
+    keeps the serve case (bf16, window 0) by device time; no single PyTorch
+    call computes paged attention, so its library_ms stays null.
+    `baselines`, directories each holding a paged_attention.cu with this
+    source's C entry or with the one from before its redesign (caller-owned
+    split partials), time those sources too at every case they take, each
+    before and after this one (device time)."""
     import torch
     from repro_torch.kernels.paged_attention import ops as pa
     rec = records["paged_attention"]
+    old_libs = []
+    if baselines:
+        import ctypes
+        from pathlib import Path
+        from repro_torch.kernels import build
+        P, I, F_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for i, d in enumerate(baselines):
+            d = Path(d).resolve()
+            # this source's entry takes the split workspace and counters
+            one_launch = "void* counters" in (d / "paged_attention.cu") \
+                .read_text()
+            sig = pa.SIGNATURES if one_launch else {
+                "paged_attention": [P] * 11 + [I] * 7 + [F_, I, P]}
+            old_libs.append((i, one_launch,
+                             build.load("paged_attention", sig, csrc=d)))
+            log(f"  paged baseline {i}: {d} "
+                f"({'one-launch' if one_launch else 'pre-redesign'} entry)")
     g = torch.Generator(device="cuda").manual_seed(2)
-    B, K, G, H, bs, nb = 4, 4, 7, 128, 16, 16
-    lengths = [1, 129, 200, 256]
-    for int8 in (False, True):
-        q, kp, vp, ks, vs, bt, lens = _paged_inputs(g, B, K, G, H, bs, nb,
-                                                    lengths, int8)
-        bt[0] = 0                               # dead row on scratch block 0
-        for window in (0, 48):
-            splits = pa.default_num_splits(nb)
-            run = lambda: pa.launch(q, kp, vp, bt, lens, k_scale=ks,  # noqa: E731
-                                    v_scale=vs, window=window,
-                                    num_splits=splits)
+    for label, B, K, G, H, bs, nb, lengths, window, cap in PAGED_CASES:
+        for int8 in (False, True):
+            q, kp, vp, ks, vs, bt, lens = _paged_inputs(g, B, K, G, H, bs,
+                                                        nb, lengths, int8)
+            if lengths[0] == 1:
+                bt[0] = 0                       # dead row on scratch block 0
+            kw = dict(k_scale=ks, v_scale=vs, window=window, cap=cap)
+            run = lambda: pa.launch(q, kp, vp, bt, lens, **kw)  # noqa: E731
             plain = lambda: pa.paged_attention_ref(  # noqa: E731
-                q.reshape(B, 1, K * G, H), kp, vp, bt, lens, window=window,
-                k_scale=ks, v_scale=vs)
-            got = run().reshape(B, 1, K * G, H)
-            want = plain()
+                q.reshape(B, 1, K * G, H), kp, vp, bt, lens, **kw)
+            want = plain().reshape(q.shape)
+            got, again = run(), run()
             torch.cuda.synchronize()
-            err = (got.float() - want.float()).abs().max().item()
+            same = torch.equal(got, again)
+            err, row_err = _paged_errors(got, want)
+            forced = [_paged_errors(pa.launch(q, kp, vp, bt, lens,
+                                              num_splits=s, **kw), want)
+                      for s in (1, nb)]
             tol = PAGED_INT8_TOL if int8 else PAGED_BF16_TOL
-            ok = bool(torch.isfinite(got).all().item()) and err < tol
+            ok = bool(torch.isfinite(got).all().item()) and same and all(
+                e < tol and r < PAGED_ROW_TOL for e, r in [(err, row_err)]
+                + forced)
+            p = pa.plan(B, K, G, H, bs, nb, pa._sm_count(q.device), int8)
+            dev_ms = kernel_device_ms(run, "paged_decode_kernel", n=20)
             ms = time_ms(run, iters=50)
-            pms = time_ms(plain, iters=10)
-            live = sum(lengths)
+            live = sum(min(ln, window) if window else ln for ln in lengths)
             kv_bytes = live * K * (2 * H * (1 if int8 else 2)
                                    + (8 if int8 else 0))
             nbytes = q.numel() * 2 * 2 + kv_bytes + bt.numel() * 4 + B * 4
             b, by = bound_ms(nbytes, 4.0 * K * G * H * live, BF16_FLOPS)
-            log(f"  paged_attention {'int8' if int8 else 'bf16'} window="
-                f"{window} splits={splits}: max_abs_err={err:.2e} (tol {tol}) "
-                f"ms={ms:.4f} plain_ms={pms:.4f} bound_ms={b:.5f} ({by}) "
-                f"{'ok' if ok else 'MISMATCH'}")
+            line = (f"  paged_attention {label} {'int8' if int8 else 'bf16'} "
+                    f"B={B} K={K} G={G} H={H} bs={bs} nb={nb} "
+                    f"window={window} cap={cap} splits={p.splits} "
+                    f"warps={p.warps} grid={p.grid}: max_abs_err={err:.2e} "
+                    f"(tol {tol}) row_rms_rel={row_err:.2e} (tol "
+                    f"{PAGED_ROW_TOL}) forced splits 1/nb max_abs_err="
+                    f"{forced[0][0]:.2e}/{forced[1][0]:.2e} row_rms_rel="
+                    f"{forced[0][1]:.2e}/{forced[1][1]:.2e} repeat "
+                    f"{'bit-identical' if same else 'DIFFERS'} "
+                    f"device_ms={dev_ms:.4f} ms={ms:.4f} bound_ms={b:.5f} "
+                    f"({by}) bound/device={b / dev_ms:.3f}")
+            del got, again
+            if cap == 0.0:
+                yard = _gathered_sdpa(q, kp, vp, ks, vs, bt, lens, window)
+                sd = kernel_device_ms(yard, "", n=20)
+                line += (f" gathered_sdpa_device_ms={sd:.4f} (gather + SDPA, "
+                         f"two calls) kernel/gathered_sdpa="
+                         f"{dev_ms / sd:.3f}")
+            for i, one_launch, old_lib in old_libs:
+                line += f" baseline {i}: " + _paged_baseline(
+                    old_lib, one_launch, run, q, kp, vp, ks, vs, bt, lens,
+                    bs, nb, window, cap)
+            if label == "serve" and not int8 and window == 0:
+                pms = time_ms(plain, iters=10)
+                line += f" plain_ms={pms:.4f}"
+                rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = \
+                    dev_ms, pms, b, by
+            log(f"{line} {'ok' if ok else 'MISMATCH'}")
             if not ok:
-                fail(f"paged_attention int8={int8} window={window} err {err}")
-            rec.max_abs_err = max(rec.max_abs_err, err)
-            if not int8 and window == 0:
-                rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = ms, pms, b, by
+                fail(f"paged_attention {label} int8={int8} window={window} "
+                     f"cap={cap}: err {err}, row err {row_err}, forced "
+                     f"splits {forced}, repeat bit-identical {same}")
+            rec.max_abs_err = max([rec.max_abs_err, err]
+                                  + [e for e, _ in forced])
+            del q, kp, vp, ks, vs, bt, lens, want
+    torch.cuda.empty_cache()
+
+
+def _paged_baseline(old_lib, one_launch, run, q, kp, vp, ks, vs, bt, lens,
+                    bs, nb, window, cap):
+    """Device time of another paged_attention.cu before and after this
+    source's kernel, at one case. `one_launch`: it has this source's C entry
+    (run through the wrapper with its library in place of this one's);
+    otherwise the entry from before the redesign (split partials from the
+    caller, the JAX package's split count, a second merge kernel)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.paged_attention import ops as pa
+    B, K, G, H = q.shape
+    st = torch.cuda.current_stream().cuda_stream
+    if one_launch:
+        def old():
+            this_lib = pa._lib
+            pa._lib = lambda: old_lib
+            try:
+                pa.launch(q, kp, vp, bt, lens, k_scale=ks, v_scale=vs,
+                          window=window, cap=cap)
+            finally:
+                pa._lib = this_lib
+            return 0
+    else:
+        splits = min(pa.default_num_splits(nb), nb)
+        out = torch.empty_like(q)
+        m_part = torch.empty((B, K, splits, G), dtype=torch.float32,
+                             device=q.device)
+        l_part = torch.empty_like(m_part)
+        acc_part = torch.empty((B, K, splits, G, H), dtype=torch.float32,
+                               device=q.device)
+
+        def old():
+            return old_lib.paged_attention(
+                q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+                None if ks is None else ks.data_ptr(),
+                None if vs is None else vs.data_ptr(), bt.data_ptr(),
+                lens.data_ptr(), m_part.data_ptr(), l_part.data_ptr(),
+                acc_part.data_ptr(), out.data_ptr(), B, K, G, H, bs, nb,
+                splits, float(cap), int(window), st)
+    try:
+        if old() != 0:
+            return "refused"
+    except (RuntimeError, ValueError):
+        return "refused"
+    before = kernel_device_ms(old, "paged_", n=20)
+    now = kernel_device_ms(run, "paged_decode_kernel", n=20)
+    after = kernel_device_ms(old, "paged_", n=20)
+    build.check(old(), "baseline paged_attention")
+    return (f"device_ms={before:.4f}/{after:.4f} (this source between: "
+            f"{now:.4f})")
 
 
 def _flash_pairs(Sq, Skv, causal, window, q_offset) -> int:
@@ -575,13 +756,16 @@ def kernel_device_ms(fn, key: str, n: int = 50):
     kernel shorter than that."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if key in e.key)
-    return us / 1e3 / n if us > 0 else float("nan")
+    for _ in range(3):  # again if the trace holds no device time at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if key in e.key)
+        if us > 0:
+            return us / 1e3 / n
+    return float("nan")
 
 
 def check_sim_scores(records):
@@ -878,6 +1062,12 @@ def profile_window(step, label, n: int = 3):
     for ms, count, key in rows[:8]:
         log(f"    {ms / n:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
             f"x{count // n:<4d} {key[:90]}")
+    paged = [r for r in rows if "paged" in r[2]]
+    if paged:
+        pms = sum(r[0] for r in paged)
+        log(f"    paged attention: {len(paged)} kernel row(s), "
+            f"{sum(r[1] for r in paged) // n} launches/step, "
+            f"{pms / n:.4f} ms/step, {pms / busy_ms:.4f} of busy time")
 
 
 def phase_serve():
@@ -906,8 +1096,10 @@ def phase_serve():
     launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
     log(f"serve: main-path launches, both paths summed: {launches}")
     times = {}
-    for fmt in ("q8", "q4"):
-        times[fmt] = decode_step_ms(cfg, variants[fmt], "bf16", fmt)
+    for kv in ("bf16", "int8"):
+        for fmt in ("q8", "q4"):
+            times[fmt, kv] = decode_step_ms(cfg, variants[fmt], kv,
+                                            f"{fmt} {kv}-KV")
     for S in (64, 256):
         prefill_attention_share(cfg, variants["q8"], "q8", S=S)
     del variants
@@ -1205,7 +1397,12 @@ def main():
     ap.add_argument("--flash-baseline", metavar="DIR",
                     help="a csrc directory with an older flash_attention.cu "
                          "(same C entry) to time beside this one")
-    baseline = ap.parse_args().flash_baseline
+    ap.add_argument("--paged-baseline", metavar="DIR", nargs="+",
+                    default=(),
+                    help="csrc directories, each with a paged_attention.cu "
+                         "(this source's C entry, or the one from before "
+                         "its redesign) to time beside this one")
+    args = ap.parse_args()
     if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
         fail("src/repro_torch not found beside chip_smoke.py", code=2)
     sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -1219,9 +1416,9 @@ def main():
     records = {k: KernelRecord(k) for k in kernels.KERNELS}
     log("kernels: each against its plain version")
     check_quant_matmul(records)
-    check_paged(records)
+    check_paged(records, tuple(args.paged_baseline))
     check_flash_products()
-    check_flash(records, baseline)
+    check_flash(records, args.flash_baseline)
     check_sim_scores(records)
     check_ssd(records)
     serve_launches, _ = phase_serve()

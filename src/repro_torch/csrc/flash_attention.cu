@@ -107,11 +107,6 @@ __device__ __forceinline__ int tile_off(int r, int c) {
   return (c >> 3) * (ROWS * 128) + sw128(r, c & 7);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
 // 2^x on the special-function unit (2 ulp; 0 for x below -126)
 __device__ __forceinline__ float ex2(float x) {
   float y;

@@ -4,251 +4,635 @@
 // Replaces the Pallas kernel paged_attention_bkgh (_kernel) in
 // src/repro/kernels/paged_attention/paged_attention.py: q (B, K, G, H) bf16;
 // pools (num_blocks, bs, K, H) bf16, or int8 with (num_blocks, bs, K) f32
-// scales multiplied in right after the load; block_tables (B, nb) int32;
-// lengths (B,) int32. 1/sqrt(H) scale, optional tanh softcap, sliding window
-// `pos > len - 1 - window`, online softmax, blocks past `len` skipped, dead
-// rows read the scratch block 0. Split-K (`splits` chunks of the block chain)
-// parks a per-split (m, l, acc) partial; a merge pass combines them
-// max-rebased, and a split that saw no key weighs exactly zero.
+// scales (the product is that of the values with their scales multiplied
+// in); block_tables (B, nb) int32; lengths (B,) int32. 1/sqrt(H) scale, the
+// tanh softcap before the mask, sliding window `pos > len - 1 - window`,
+// finite -1e30 mask, online softmax, row sum clamped at 1e-37, blocks past
+// `len` skipped, dead rows read the scratch block 0; out bf16 in q's layout.
 //
-// What bounds it on an H100: bytes. Each decode step reads every live KV
-// position once (G = 7 query heads share one KV head, ~2 flops per byte), so
-// the design reads each KV block once per (row, kv head, split): one thread
-// block of 128 threads loads a (bs, H) stripe of K and V into shared memory
-// (dequantizing int8 there, so device-memory traffic stays int8), computes
-// the G x bs scores with one warp per position, updates the online softmax
-// and accumulates P @ V with one thread per head-dim column. The grid
-// (B, K, splits) gives the card B*K*splits blocks; split-K is what fills it
-// when the batch is small and chains are long.
+// What bounds it on an H100. A decode step reads every live KV position
+// once per kv head and does ~2 G flops per position and head value, far
+// below the card's ~295 flop/byte ridge, so bytes bound it; at the serving
+// shapes (4 rows of <= 256 positions, ~0.4 MB) the bytes take ~0.4 us and
+// the chain of dependent latencies (lengths and table -> copies -> products
+// -> the split merge) sets the time. The design:
+//
+// - A grid that fills the card. Blocks are (split, kv head, row); `plan` in
+//   kernels/paged_attention/ops.py cuts each row's chain into splits of
+//   whole pool blocks so that the grid covers the SMs (at the serving shape
+//   16 splits of one block: 256 blocks). A split whose chunk holds no live
+//   position (past the row's length, or wholly outside the window) does no
+//   work and records a partial that weighs exactly zero.
+// - Copies in flight while a tile computes. A block's `warps` warps take the
+//   chunk's live 16-position tiles round robin. Each warp owns a ring of
+//   STAGES tiles in shared memory filled by 16-byte cp.async (a position's
+//   stripe is H contiguous values, positions K * H apart; int8 codes stay
+//   int8, their scale stripes beside them), so the copies of its next two
+//   tiles are in flight while it computes one; a warp needs no block-wide
+//   barrier until its chunk is done. The split's block-table entries are
+//   read once, ahead of every copy.
+// - GQA on the tensor cores. The G <= 8 query heads of the kv head are rows
+//   0..G-1 of one m16 tile (rows G..15 zero): S = Q K^T and O += P V are
+//   mma.sync.m16n8k16 bf16 -> f32, K and V fragments by ldmatrix (V
+//   transposed) from rows padded to an odd number of 16-byte chunks, so
+//   the 8 rows of a matrix hit 8 different banks. int8 codes convert to
+//   bf16 exactly (two bit operations and one bf16x2 add a pair, mma.cuh),
+//   reading int8 K with its k order permuted inside each 16-value step,
+//   which Q's fragments follow; k_scale multiplies S column by column after
+//   Q K^T and v_scale multiplies P before P V. At H 256 Q's fragments sit
+//   in shared memory, which leaves O's fragments their registers (no
+//   spills).
+// - One instantiation per pool type and HMAX, H rounded up to 64, 128 or
+//   256: ring rows are HMAX values wide, their columns past H zeroed once a
+//   launch, so the products take HMAX / 16 steps with no test in the loop.
+// - The online softmax on S's fragment in registers: a row's 16 scores of
+//   a tile sit in one lane quad (two shuffles for the max); the mask and
+//   softcap are per-element tests on the lane's 4 positions; exp is the
+//   accurate expf of the plain version, on natural-log scores.
+// - P to f32's precision. An output that the kernel and the plain version
+//   compute apart by more than a few f32 ulps rounds to another bf16 value
+//   whenever the two straddle a rounding boundary, and one bf16 ulp
+//   exceeds the tolerances (2^-9 at |out| >= 0.25, which most rows reach,
+//   against 1e-3 for bf16 pools; 2^-6 at |out| >= 2, which a dead row's
+//   single value reaches, against 1e-2 for int8): P rounded to bf16 (2^-9)
+//   or split in two (2^-16) flips such outputs. So P (with v_scale folded
+//   in, for int8) is split into three bf16 parts, P to 2^-24, and P V is
+//   three products, smallest first.
+// - One launch, bit-identical repeats. The live warps of a block meet in
+//   shared memory, combined in warp order. With one split the block writes
+//   bf16;
+//   otherwise it writes its partial to the workspace, fences, and counts
+//   itself in at a per-(row, kv head) counter; the last block to arrive
+//   merges every split's partial, max-rebased, in split order (their loads
+//   in flight a batch at a time), writes bf16 and resets the counter for
+//   the next launch.
 //
 // Launches on the caller's stream and allocates nothing; the wrapper
-// (kernels/paged_attention/ops.py) owns the output and split partials.
+// (kernels/paged_attention/ops.py) owns the output, the workspace and the
+// counters, and `plan` there picks the split and the warps.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+#include "wgmma.cuh"
+
 namespace {
 
+using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int G_MAX = 8;        // query heads per kv head
-constexpr int H_PER_THREAD = 2; // head dim <= 256
+constexpr int TILE = 16;            // positions a warp takes at a time
+constexpr int STAGES = 3;           // tiles in a warp's ring
+constexpr int G_MAX = 8;            // query heads per kv head: rows of m16
+constexpr int MERGE_BATCH = 16;     // partials a merging thread loads at once
+constexpr int SMEM_MAX = 222 * 1024;  // dynamic shared memory of a block
 constexpr float NEG_INF = -1e30f;
+constexpr unsigned FULL = 0xffffffffu;
 
-__device__ __forceinline__ float bf2f(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+struct Params {
+  const bf16* q;
+  const uint8_t* k_pool;
+  const uint8_t* v_pool;
+  const float* k_scale;         // null for bf16 pools
+  const float* v_scale;
+  const int* block_tables;
+  const int* lengths;
+  float* ws_acc;                // (B * K * splits, G, H) partial sums
+  float* ws_ml;                 // (B * K * splits, G, 2): max, sum
+  unsigned* counters;           // (B * K) arrivals, zero between launches
+  bf16* out;
+  int K, G, H, bs, nb, splits, bps, warps;
+  int row_bytes, pitch, stage_bytes;
+  float scale, cap;
+  int window;
+};
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src)
+               : "memory");
 }
 
-template <bool QUANT>
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ float lo_f32(uint32_t v) {
+  return __uint_as_float(v << 16);
+}
+
+__device__ __forceinline__ float hi_f32(uint32_t v) {
+  return __uint_as_float(v & 0xffff0000u);
+}
+
+__device__ __forceinline__ void axpy4(float4& a, float w, const float4& v) {
+  a.x += w * v.x;
+  a.y += w * v.y;
+  a.z += w * v.z;
+  a.w += w * v.w;
+}
+
+// a / l as 4 bf16 at out (8-byte aligned)
+__device__ __forceinline__ void store_out(bf16* out, const float4& a,
+                                          float l) {
+  const float r = 1.f / fmaxf(l, 1e-37f);
+  *reinterpret_cast<uint2*>(out) =
+      make_uint2(pack_bf16x2(a.x * r, a.y * r), pack_bf16x2(a.z * r, a.w * r));
+}
+
+// HMAX: H rounded up to 64, 128 or 256. The products always take HMAX / 16
+// steps: a ring row is HMAX values wide, and its columns past H hold zeros,
+// which meet zero Q columns in S and make O columns that are never stored.
+// Lane (g, qd) = (lane / 4, lane % 4) holds row g of the m16
+// fragments: S columns 8 nt + 2 qd + e (nt, e in {0, 1}) and O columns
+// 8 n + 2 qd + e of n8 tile n (bf16 V), or 16 k + 4 qd + 0..3 of 16-column
+// step k (int8 V, whose n8 tiles are the even and the odd columns).
+template <bool INT8, int HMAX>
 __global__ void __launch_bounds__(THREADS)
-paged_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                  const void* __restrict__ k_pool,
-                  const void* __restrict__ v_pool,
-                  const float* __restrict__ k_scale,
-                  const float* __restrict__ v_scale,
-                  const int* __restrict__ block_tables,
-                  const int* __restrict__ lengths,
-                  float* __restrict__ m_part, float* __restrict__ l_part,
-                  float* __restrict__ acc_part,
-                  __nv_bfloat16* __restrict__ out,
-                  int K, int G, int H, int bs, int nb, int nbs, int splits,
-                  float scale, float cap, int window) {
-  const int b = blockIdx.x, kh = blockIdx.y, sp = blockIdx.z;
-  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  extern __shared__ float smem[];
-  float* q_s = smem;              // G * H
-  float* k_s = q_s + G * H;       // bs * H
-  float* v_s = k_s + bs * H;      // bs * H
-  float* p_s = v_s + bs * H;      // G * bs
-  float* m_s = p_s + G * bs;      // G
-  float* l_s = m_s + G;           // G
-  float* a_s = l_s + G;           // G
-
-  const int length = lengths[b];
-  const __nv_bfloat16* qb = q + ((size_t)(b * K + kh) * G) * H;
-  for (int i = t; i < G * H; i += THREADS) q_s[i] = bf2f(qb[i]) * scale;
-  if (t < G) {
-    m_s[t] = NEG_INF;
-    l_s[t] = 0.f;
+    paged_decode_kernel(const Params p) {
+  constexpr int KS = HMAX / 16;   // 16-column steps of Q K^T and of P V
+  constexpr int NT = HMAX / 8;    // n8 tiles of O
+  constexpr int PARTS = 3;                 // bf16 parts of P
+  constexpr bool Q_SMEM = HMAX >= 256;     // Q's fragments in shared memory
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ float m_w[WARPS][G_MAX], l_w[WARPS][G_MAX];
+  __shared__ int last;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
+  const int G = p.G, H = p.H, bs = p.bs, ks_n = H >> 4;
+  const size_t pair = (size_t)b * p.K + kh;
+  const size_t part = pair * p.splits + split;
+  // 0. zero the warp's ring rows past H, once, while few registers are live
+  // (later in the kernel it pushed bf16 HMAX 256 into spills)
+  if (H < HMAX && warp < p.warps) {
+    const int pad = (HMAX * (INT8 ? 1 : 2) - p.row_bytes) >> 4;  // chunks
+    uint8_t* ring = smem + warp * STAGES * p.stage_bytes;
+    for (int e = lane; e < STAGES * 2 * TILE * pad; e += 32) {
+      const int r = e / pad;  // row of the ring: stage r / 32, K then V
+      *reinterpret_cast<uint4*>(ring + (r / (2 * TILE)) * p.stage_bytes +
+                                (r % (2 * TILE)) * p.pitch + p.row_bytes +
+                                16 * (e - r * pad)) = make_uint4(0, 0, 0, 0);
+    }
   }
-  float acc[G_MAX][H_PER_THREAD];
-#pragma unroll
-  for (int g = 0; g < G_MAX; ++g)
-#pragma unroll
-    for (int j = 0; j < H_PER_THREAD; ++j) acc[g][j] = 0.f;
-  __syncthreads();
 
-  const int j0 = sp * nbs;
-  const int j1 = min(nb, j0 + nbs);
-  for (int j = j0; j < j1; ++j) {
-    const int start = j * bs;
-    if (start >= length) break;                 // the rest of the chain too
-    if (window > 0 && start + bs - 1 <= length - 1 - window)
-      continue;                                 // whole block outside window
-    const int bid = block_tables[(size_t)b * nb + j];
-    for (int i = t; i < bs * H; i += THREADS) {
-      const int p = i / H, h = i - p * H;
-      const size_t row = ((size_t)bid * bs + p) * K + kh;
-      const size_t off = row * H + h;
-      if (QUANT) {
-        k_s[i] = (float)reinterpret_cast<const int8_t*>(k_pool)[off] *
-                 k_scale[row];
-        v_s[i] = (float)reinterpret_cast<const int8_t*>(v_pool)[off] *
-                 v_scale[row];
+  // 1. the split's chunk of the chain: its table entries, and the tiles
+  // that hold live positions
+  const int j0 = split * p.bps, j1 = min(p.nb, j0 + p.bps);
+  int* bt_s = reinterpret_cast<int*>(smem + p.warps * STAGES * p.stage_bytes);
+  for (int i = tid; i < j1 - j0; i += THREADS)
+    bt_s[i] = __ldg(p.block_tables + (size_t)b * p.nb + j0 + i);
+  const int len = __ldg(p.lengths + b);
+  const int lo = p.window > 0 ? max(0, len - p.window) : 0;
+  const int first = max(j0 * bs, lo), end = min(j1 * bs, len);
+  const int t0 = first / TILE;
+  const int ntiles = end > first ? (end + TILE - 1) / TILE - t0 : 0;
+  const int mine = warp < p.warps && ntiles > warp
+                       ? (ntiles - warp + p.warps - 1) / p.warps
+                       : 0;
+
+  // Q's A fragments (a0, a2: row g of each k step; rows 8..15 are zero), in
+  // registers, or at H 256 in shared memory (written by warp 0; the same
+  // for every warp), which leaves the O fragments their registers
+  __shared__ uint2 q_s[Q_SMEM ? KS : 1][32];
+  uint2 qa[Q_SMEM ? 1 : KS];
+#pragma unroll
+  for (int k = 0; k < KS; ++k) {
+    uint2 a = make_uint2(0u, 0u);
+    if (k < ks_n && g < G) {
+      const bf16* qr = p.q + (pair * G + g) * H + 16 * k;
+      if (INT8) {  // k order permuted as the int8 K fragments are:
+        // columns 4qd and 4qd + 2, then 4qd + 1 and 4qd + 3
+        const uint2 v = *reinterpret_cast<const uint2*>(qr + 4 * qd);
+        a = make_uint2(__byte_perm(v.x, v.y, 0x5410),
+                       __byte_perm(v.x, v.y, 0x7632));
       } else {
-        k_s[i] = bf2f(reinterpret_cast<const __nv_bfloat16*>(k_pool)[off]);
-        v_s[i] = bf2f(reinterpret_cast<const __nv_bfloat16*>(v_pool)[off]);
+        a = make_uint2(*reinterpret_cast<const uint32_t*>(qr + 2 * qd),
+                       *reinterpret_cast<const uint32_t*>(qr + 8 + 2 * qd));
       }
     }
-    __syncthreads();
-    for (int p = warp; p < bs; p += WARPS) {
-      const int pos = start + p;
-      const bool ok =
-          pos < length && (window <= 0 || pos > length - 1 - window);
-      for (int g = 0; g < G; ++g) {
-        float d = 0.f;
-        for (int h = lane; h < H; h += 32) d += q_s[g * H + h] * k_s[p * H + h];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-        if (lane == 0) {
-          if (cap > 0.f) d = tanhf(d / cap) * cap;
-          p_s[g * bs + p] = ok ? d : NEG_INF;
-        }
-      }
+    if constexpr (Q_SMEM) {
+      if (warp == 0) q_s[k][lane] = a;
+    } else {
+      qa[k] = a;
     }
-    __syncthreads();
-    if (t < G) {
-      float* row = p_s + t * bs;
-      const float m_prev = m_s[t];
-      float m_cur = NEG_INF;
-      for (int p = 0; p < bs; ++p) m_cur = fmaxf(m_cur, row[p]);
-      const float m_new = fmaxf(m_prev, m_cur);
-      float sum = 0.f;
-      for (int p = 0; p < bs; ++p) {
-        const float e = expf(row[p] - m_new);
-        row[p] = e;
-        sum += e;
-      }
-      const float alpha = expf(m_prev - m_new);
-      l_s[t] = l_s[t] * alpha + sum;
-      m_s[t] = m_new;
-      a_s[t] = alpha;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int jh = 0; jh < H_PER_THREAD; ++jh) {
-      const int h = t + jh * THREADS;
-      if (h < H) {
-#pragma unroll
-        for (int g = 0; g < G_MAX; ++g) {
-          if (g < G) {
-            float a = acc[g][jh] * a_s[g];
-            for (int p = 0; p < bs; ++p) a += p_s[g * bs + p] * v_s[p * H + h];
-            acc[g][jh] = a;
-          }
-        }
-      }
-    }
-    __syncthreads();
   }
+  __syncthreads();  // bt_s
 
-  if (splits == 1) {
-#pragma unroll
-    for (int jh = 0; jh < H_PER_THREAD; ++jh) {
-      const int h = t + jh * THREADS;
-      if (h < H) {
-#pragma unroll
-        for (int g = 0; g < G_MAX; ++g) {
-          if (g < G) {
-            const float l = fmaxf(l_s[g], 1e-37f);
-            out[((size_t)(b * K + kh) * G + g) * H + h] =
-                __float2bfloat16(acc[g][jh] / l);
-          }
+  // 2. the warp's tiles t0 + warp + i * warps through its ring. Chunk
+  // e = lane + 32 i of a tile's copy is position e / cpr, 16-byte column
+  // e % cpr of the stripes: the lane's pool and ring offsets step by fixed
+  // amounts, with one wrap when the column passes the stripe's end.
+  uint8_t* ring = smem + warp * STAGES * p.stage_bytes;
+  const int cpr = p.row_bytes >> 4;
+  const int r0 = lane / cpr, c0 = lane - r0 * cpr, c_step = 32 % cpr;
+  const size_t pos_bytes = (size_t)p.K * p.row_bytes;
+  const size_t src_first = r0 * pos_bytes + 16 * c0;
+  const size_t src_step = (32 / cpr) * pos_bytes + 16 * c_step;
+  const size_t src_wrap = pos_bytes - 16 * cpr;
+  const int dst_first = r0 * p.pitch + 16 * c0;
+  const int dst_step = (32 / cpr) * p.pitch + 16 * c_step;
+  const int dst_wrap = p.pitch - 16 * cpr;
+  const int tpb = bs / TILE;  // tiles of a pool block
+  // the next tile to copy: chain block jt, tile ot of it
+  int jt = (t0 + warp) / tpb, ot = (t0 + warp) % tpb;
+  auto issue = [&](int i) {
+    if (i < mine) {
+      const size_t row0 = (size_t)bt_s[jt - j0] * bs + ot * TILE;
+      size_t src = (row0 * p.K + kh) * p.row_bytes + src_first;
+      uint8_t* st = ring + (i % STAGES) * p.stage_bytes;
+      int dst = dst_first, c = c0;
+      for (int e = lane; e < TILE * cpr; e += 32) {
+        cp_async16(st + dst, p.k_pool + src, true);
+        cp_async16(st + TILE * p.pitch + dst, p.v_pool + src, true);
+        src += src_step;
+        dst += dst_step;
+        c += c_step;
+        if (c >= cpr) {
+          c -= cpr;
+          src += src_wrap;
+          dst += dst_wrap;
         }
       }
+      if (INT8)  // k scales of the 16 positions, then v scales
+        cp_async4(st + 2 * TILE * p.pitch + 4 * lane,
+                  (lane < TILE ? p.k_scale : p.v_scale) +
+                      (row0 + (lane & 15)) * p.K + kh);
+      for (ot += p.warps; ot >= tpb; ot -= tpb) ++jt;
     }
-    return;
-  }
-  const size_t idx = ((size_t)(b * K + kh) * splits + sp) * G;
-  if (t < G) {
-    m_part[idx + t] = m_s[t];
-    l_part[idx + t] = l_s[t];
-  }
+    cp_async_commit();
+  };
+
+  float acc[NT][4];
 #pragma unroll
-  for (int jh = 0; jh < H_PER_THREAD; ++jh) {
-    const int h = t + jh * THREADS;
-    if (h < H) {
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run = NEG_INF, lsum = 0.f;  // row g: running max, lane's sum
+
+#pragma unroll 1
+  for (int i = 0; i < STAGES - 1; ++i) issue(i);
+#pragma unroll 1
+  for (int i = 0; i < mine; ++i) {
+    cp_async_wait<STAGES - 2>();
+    __syncwarp();
+    issue(i + STAGES - 1);  // into the slot tile i - 1 used
+    const uint8_t* kt = ring + (i % STAGES) * p.stage_bytes;
+    const uint8_t* vt = kt + TILE * p.pitch;
+    const float* kscale = reinterpret_cast<const float*>(vt + TILE * p.pitch);
+    const int pos0 = (t0 + warp + i * p.warps) * TILE;
+
+    // S = Q K^T: n8 tile nt holds positions 8 nt .. 8 nt + 7
+    float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-      for (int g = 0; g < G_MAX; ++g)
-        if (g < G) acc_part[(idx + g) * H + h] = acc[g][jh];
+    for (int k = 0; k < KS; ++k) {
+      uint32_t kb[2][2];
+      if (INT8) {  // 4 codes (columns 16k + 4qd ..) of position 8nt + g
+        uint32_t r[2];
+        ldsm_x2(r, kt + (lane & 15) * p.pitch + 16 * k);
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          kb[nt][0] = s8x2_bf16(r[nt]);
+          kb[nt][1] = s8x2_bf16(r[nt] >> 8);
+        }
+      } else {
+        uint32_t r[4];
+        ldsm_x4(r, kt + (8 * (lane >> 4) + (lane & 7)) * p.pitch + 32 * k +
+                       16 * ((lane >> 3) & 1));
+        kb[0][0] = r[0];
+        kb[0][1] = r[1];
+        kb[1][0] = r[2];
+        kb[1][1] = r[3];
+      }
+      uint2 qf;
+      if constexpr (Q_SMEM) {
+        qf = q_s[k][lane];
+      } else {
+        qf = qa[k];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 2; ++nt)
+        mma_bf16(s[nt], qf.x, 0u, qf.y, 0u, kb[nt][0], kb[nt][1]);
+    }
+
+    // online softmax of row g over the tile's 16 positions
+    float x[2][2], mt = NEG_INF;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 8 * nt + 2 * qd + e, pos = pos0 + c;
+        float v = s[nt][e] * p.scale;
+        if (INT8) v *= kscale[c];
+        if (p.cap > 0.f) v = tanhf(v / p.cap) * p.cap;
+        v = (pos < len && pos >= lo) ? v : NEG_INF;
+        x[nt][e] = v;
+        mt = fmaxf(mt, v);
+      }
+    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
+    const float mn = fmaxf(m_run, mt);
+    const float alpha = expf(m_run - mn);
+    m_run = mn;
+    float pr[2][2], ps = 0.f;
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        pr[nt][e] = expf(x[nt][e] - mn);
+        ps += pr[nt][e];
+      }
+    lsum = lsum * alpha + ps;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      acc[n][0] *= alpha;
+      acc[n][1] *= alpha;
+    }
+
+    // P's A fragments: positions 2qd, 2qd + 1 (a0) and 8 + 2qd, 9 + 2qd
+    // (a2), as PARTS bf16 parts: P to 2^-24, as f32 holds it
+    uint32_t pp[PARTS][2];
+#pragma unroll
+    for (int nt = 0; nt < 2; ++nt) {
+      float p0 = pr[nt][0], p1 = pr[nt][1];
+      if (INT8) {
+        p0 *= kscale[TILE + 8 * nt + 2 * qd];
+        p1 *= kscale[TILE + 8 * nt + 2 * qd + 1];
+      }
+#pragma unroll
+      for (int part = 0; part < PARTS; ++part) {
+        pp[part][nt] = pack_bf16x2(p0, p1);
+        p0 -= lo_f32(pp[part][nt]);
+        p1 -= hi_f32(pp[part][nt]);
+      }
+    }
+
+    // O += P V, 16 columns a step (P's parts smallest first)
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      uint32_t vb[2][2];  // n8 tiles 2k and 2k + 1: b0, b1
+      if (INT8) {  // tile 2k: columns 16k + 2g; tile 2k + 1: 16k + 2g + 1
+        uint32_t r[2];
+        ldsm_x2_t(r, vt + (lane & 15) * p.pitch + 16 * k);
+        vb[0][0] = s8x2_bf16(r[0]);
+        vb[0][1] = s8x2_bf16(r[1]);
+        vb[1][0] = s8x2_bf16(r[0] >> 8);
+        vb[1][1] = s8x2_bf16(r[1] >> 8);
+      } else {
+        uint32_t r[4];
+        ldsm_x4_t(r, vt + (8 * ((lane >> 3) & 1) + (lane & 7)) * p.pitch +
+                         32 * k + 16 * (lane >> 4));
+        vb[0][0] = r[0];
+        vb[0][1] = r[1];
+        vb[1][0] = r[2];
+        vb[1][1] = r[3];
+      }
+#pragma unroll
+      for (int part = PARTS - 1; part >= 0; --part)
+#pragma unroll
+        for (int t = 0; t < 2; ++t)
+          mma_bf16(acc[2 * k + t], pp[part][0], 0u, pp[part][1], 0u,
+                   vb[t][0], vb[t][1]);
     }
   }
+  cp_async_wait<0>();
+
+  // 3. the block's state: one live warp holds it in registers; more meet
+  // in shared memory (over the rings), combined in warp order
+  lsum += __shfl_xor_sync(FULL, lsum, 1);
+  lsum += __shfl_xor_sync(FULL, lsum, 2);
+  const int live = min(p.warps, ntiles);
+  const int quads = G * H / 4;
+  // the lane's row-g values as column pairs (column, v0, v1)
+  auto row_pairs = [&](auto&& f) {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) {
+      if (k >= ks_n) continue;
+      if (INT8) {
+        f(16 * k + 4 * qd, acc[2 * k][0], acc[2 * k + 1][0]);
+        f(16 * k + 4 * qd + 2, acc[2 * k][1], acc[2 * k + 1][1]);
+      } else {
+        f(16 * k + 2 * qd, acc[2 * k][0], acc[2 * k][1]);
+        f(16 * k + 8 + 2 * qd, acc[2 * k + 1][0], acc[2 * k + 1][1]);
+      }
+    }
+  };
+  if (live == 1) {
+    if (warp == 0 && g < G) {
+      if (p.splits == 1) {
+        bf16* o = p.out + (pair * G + g) * H;
+        const float r = 1.f / fmaxf(lsum, 1e-37f);
+        row_pairs([&](int c, float v0, float v1) {
+          *reinterpret_cast<uint32_t*>(o + c) = pack_bf16x2(v0 * r, v1 * r);
+        });
+      } else {
+        float* o = p.ws_acc + (part * G + g) * H;
+        row_pairs([&](int c, float v0, float v1) {
+          __stcg(reinterpret_cast<float2*>(o + c), make_float2(v0, v1));
+        });
+        if (qd == 0)
+          __stcg(reinterpret_cast<float2*>(p.ws_ml + (part * G + g) * 2),
+                 make_float2(m_run, lsum));
+      }
+    }
+  } else {
+    float* red = reinterpret_cast<float*>(smem);  // [warp][g][H]
+    if (live > 1) {
+      __syncthreads();  // every warp is done with its ring
+      if (warp < live && g < G) {
+        float* row = red + (warp * G + g) * H;
+        row_pairs([&](int c, float v0, float v1) {
+          *reinterpret_cast<float2*>(row + c) = make_float2(v0, v1);
+        });
+        if (qd == 0) {
+          m_w[warp][g] = m_run;
+          l_w[warp][g] = lsum;
+        }
+      }
+      __syncthreads();
+    }
+    // a dead split (live == 0) records m = -1e30, l = 0, acc = 0
+    for (int e = tid; e < quads; e += THREADS) {
+      const int gg = 4 * e / H, h = 4 * e - gg * H;
+      float mb = NEG_INF;
+      for (int w = 0; w < live; ++w) mb = fmaxf(mb, m_w[w][gg]);
+      float lb = 0.f;
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int w = 0; w < live; ++w) {
+        const float wt = expf(m_w[w][gg] - mb);
+        lb += wt * l_w[w][gg];
+        axpy4(a, wt,
+              *reinterpret_cast<const float4*>(red + (w * G + gg) * H + h));
+      }
+      if (p.splits == 1) {
+        store_out(p.out + (pair * G + gg) * H + h, a, lb);
+      } else {
+        __stcg(reinterpret_cast<float4*>(p.ws_acc + (part * G + gg) * H + h),
+               a);
+        if (h == 0)
+          __stcg(reinterpret_cast<float2*>(p.ws_ml + (part * G + gg) * 2),
+                 make_float2(mb, lb));
+      }
+    }
+  }
+  if (p.splits == 1) return;
+
+  // 4. the last block of this (row, kv head) to arrive merges the splits'
+  // partials in split order, whichever block it is
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(p.counters + pair, 1u) == (unsigned)(p.splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const float* ml = p.ws_ml + pair * p.splits * G * 2;
+  const float* pa = p.ws_acc + pair * p.splits * G * H;
+  for (int e = tid; e < quads; e += THREADS) {
+    const int gg = 4 * e / H, h = 4 * e - gg * H;
+    float m = NEG_INF, l = 0.f;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s0 = 0; s0 < p.splits; s0 += MERGE_BATCH) {
+      // a batch's loads all in flight at once; a dead split weighs 0
+      float2 mlb[MERGE_BATCH];
+      float4 ab[MERGE_BATCH];
+#pragma unroll
+      for (int j = 0; j < MERGE_BATCH; ++j) {
+        if (s0 + j >= p.splits) continue;
+        const int i = (s0 + j) * G + gg;
+        mlb[j] = __ldcg(reinterpret_cast<const float2*>(ml + 2 * i));
+        ab[j] = __ldcg(reinterpret_cast<const float4*>(pa + i * H + h));
+      }
+      float mb = m;
+#pragma unroll
+      for (int j = 0; j < MERGE_BATCH; ++j)
+        if (s0 + j < p.splits) mb = fmaxf(mb, mlb[j].x);
+      const float r = expf(m - mb);
+      l *= r;
+      a = make_float4(a.x * r, a.y * r, a.z * r, a.w * r);
+#pragma unroll
+      for (int j = 0; j < MERGE_BATCH; ++j) {
+        if (s0 + j >= p.splits) continue;
+        const float wt = expf(mlb[j].x - mb);
+        l += wt * mlb[j].y;
+        axpy4(a, wt, ab[j]);
+      }
+      m = mb;
+    }
+    store_out(p.out + (pair * G + gg) * H + h, a, l);
+  }
+  if (tid == 0) p.counters[pair] = 0u;  // ready for the next launch
 }
 
-// One block per (row, kv head): max-rebased merge of the split partials.
-__global__ void __launch_bounds__(THREADS)
-paged_merge_kernel(const float* __restrict__ m_part,
-                   const float* __restrict__ l_part,
-                   const float* __restrict__ acc_part,
-                   __nv_bfloat16* __restrict__ out, int G, int H, int splits) {
-  const size_t bk = blockIdx.x;
-  for (int g = 0; g < G; ++g) {
-    float m_tot = NEG_INF;
-    for (int s = 0; s < splits; ++s)
-      m_tot = fmaxf(m_tot, m_part[(bk * splits + s) * G + g]);
-    for (int h = threadIdx.x; h < H; h += THREADS) {
-      float l_tot = 0.f, a_tot = 0.f;
-      for (int s = 0; s < splits; ++s) {
-        const size_t i = (bk * splits + s) * G + g;
-        const float w = expf(m_part[i] - m_tot);
-        l_tot += l_part[i] * w;
-        a_tot += acc_part[i * H + h] * w;
-      }
-      out[(bk * G + g) * H + h] = __float2bfloat16(a_tot / fmaxf(l_tot, 1e-37f));
-    }
+template <bool INT8, int HMAX>
+int launch(const Params& p, dim3 grid, int smem, cudaStream_t stream) {
+  static int granted = 0;
+  static bool carved = false;
+  auto kernel = paged_decode_kernel<INT8, HMAX>;
+  if (!carved) {  // the most shared memory an SM has: more blocks
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, 100);
+    if (e != cudaSuccess) return (int)e;
+    carved = true;
   }
+  const int err = ensure_smem(kernel, smem, granted);
+  if (err != 0) return err;
+  kernel<<<grid, THREADS, smem, stream>>>(p);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
 
 }  // namespace
 
-// k_scale/v_scale null for bf16 pools. m_part/l_part (B,K,splits,G) and
-// acc_part (B,K,splits,G,H) f32 are read only when splits > 1.
+// One launch. k_scale/v_scale null for bf16 pools. The chain is cut into
+// splits of `bps` pool blocks (the last ragged); `warps` (1..4) warps of a
+// block take its tiles. With more than one split, ws holds
+// B * K * splits * G * (H + 2) floats and counters B * K zeroed ints (the
+// kernel leaves them zeroed). Dynamic shared memory: warps * STAGES * stage
+// + the split's table entries, stage = 2 * 16 * pitch (+ 128 for int8
+// scales), pitch = the bytes of HMAX values (H rounded up to 64, 128 or 256)
+// rounded to an odd count of 16 bytes.
 extern "C" int paged_attention(const void* q, const void* k_pool,
                                const void* v_pool, const void* k_scale,
                                const void* v_scale, const void* block_tables,
-                               const void* lengths, void* m_part, void* l_part,
-                               void* acc_part, void* out, int B, int K, int G,
-                               int H, int bs, int nb, int splits, float cap,
+                               const void* lengths, void* ws, void* counters,
+                               void* out, int B, int K, int G, int H, int bs,
+                               int nb, int bps, int warps, float cap,
                                int window, void* stream) {
-  if (B <= 0 || K <= 0 || G <= 0 || G > G_MAX || H <= 0 ||
-      H > THREADS * H_PER_THREAD || bs <= 0 || nb <= 0 || splits <= 0 ||
-      splits > nb)
+  const bool int8 = k_scale != nullptr;
+  if (B <= 0 || B > 65535 || K <= 0 || K > 65535 || G <= 0 || G > G_MAX ||
+      H < 16 || H > 256 || H % 16 != 0 || bs < 16 || bs > 128 ||
+      bs % 16 != 0 || nb <= 0 || bps <= 0 || bps > nb || warps < 1 ||
+      warps > WARPS || warps * TILE > bps * bs || window < 0 ||
+      (int8 && v_scale == nullptr) || !aligned16(q) || !aligned16(k_pool) ||
+      !aligned16(v_pool) || !aligned16(out))
     return (int)cudaErrorInvalidValue;
-  const int nbs = (nb + splits - 1) / splits;
-  const float scale = 1.0f / sqrtf((float)H);
-  const size_t smem = sizeof(float) * (size_t)(G * H + 2 * bs * H + G * bs + 3 * G);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  const dim3 grid(B, K, splits);
-  const auto* qp = reinterpret_cast<const __nv_bfloat16*>(q);
-  const auto* bt = reinterpret_cast<const int*>(block_tables);
-  const auto* ln = reinterpret_cast<const int*>(lengths);
-  auto* mp = reinterpret_cast<float*>(m_part);
-  auto* lp = reinterpret_cast<float*>(l_part);
-  auto* ap = reinterpret_cast<float*>(acc_part);
-  auto* op = reinterpret_cast<__nv_bfloat16*>(out);
-  if (k_scale != nullptr) {
-    paged_attn_kernel<true><<<grid, THREADS, smem, s>>>(
-        qp, k_pool, v_pool, reinterpret_cast<const float*>(k_scale),
-        reinterpret_cast<const float*>(v_scale), bt, ln, mp, lp, ap, op, K, G,
-        H, bs, nb, nbs, splits, scale, cap, window);
-  } else {
-    paged_attn_kernel<false><<<grid, THREADS, smem, s>>>(
-        qp, k_pool, v_pool, nullptr, nullptr, bt, ln, mp, lp, ap, op, K, G, H,
-        bs, nb, nbs, splits, scale, cap, window);
+  const int splits = (nb + bps - 1) / bps;
+  if (splits > 1 && (ws == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  Params p;
+  p.q = reinterpret_cast<const bf16*>(q);
+  p.k_pool = reinterpret_cast<const uint8_t*>(k_pool);
+  p.v_pool = reinterpret_cast<const uint8_t*>(v_pool);
+  p.k_scale = reinterpret_cast<const float*>(k_scale);
+  p.v_scale = reinterpret_cast<const float*>(v_scale);
+  p.block_tables = reinterpret_cast<const int*>(block_tables);
+  p.lengths = reinterpret_cast<const int*>(lengths);
+  p.ws_acc = reinterpret_cast<float*>(ws);
+  p.ws_ml = splits > 1 ? p.ws_acc + (size_t)B * K * splits * G * H : nullptr;
+  p.counters = reinterpret_cast<unsigned*>(counters);
+  p.out = reinterpret_cast<bf16*>(out);
+  p.K = K;
+  p.G = G;
+  p.H = H;
+  p.bs = bs;
+  p.nb = nb;
+  p.splits = splits;
+  p.bps = bps;
+  p.warps = warps;
+  p.row_bytes = H * (int8 ? 1 : 2);
+  const int hmax = H <= 64 ? 64 : H <= 128 ? 128 : 256;
+  p.pitch = 16 * ((hmax * (int8 ? 1 : 2) / 16) | 1);
+  p.stage_bytes = 2 * TILE * p.pitch + (int8 ? 2 * TILE * 4 : 0);
+  p.scale = 1.0f / sqrtf((float)H);
+  p.cap = cap;
+  p.window = window;
+  const int smem = warps * STAGES * p.stage_bytes + 16 * ((4 * bps + 15) / 16);
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  const dim3 grid(splits, K, B);
+  const cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (int8) {
+    if (hmax == 64) return launch<true, 64>(p, grid, smem, st);
+    if (hmax == 128) return launch<true, 128>(p, grid, smem, st);
+    return launch<true, 256>(p, grid, smem, st);
   }
-  int err = (int)cudaGetLastError();
-  if (err != 0 || splits == 1) return err;
-  paged_merge_kernel<<<B * K, THREADS, 0, s>>>(mp, lp, ap, op, G, H, splits);
-  return (int)cudaGetLastError();
+  if (hmax == 64) return launch<false, 64>(p, grid, smem, st);
+  if (hmax == 128) return launch<false, 128>(p, grid, smem, st);
+  return launch<false, 256>(p, grid, smem, st);
 }

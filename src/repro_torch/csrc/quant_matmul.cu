@@ -65,6 +65,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "wgmma.cuh"
 
 namespace {
@@ -76,26 +77,11 @@ constexpr int kQ8 = 0, kQ4 = 1;
 // helpers
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
 // Byte `byte` of vx (int8 codes xor 0x80, i.e. biased to 0..255) as an exact
 // f32: 0x4B0000uu is 2^23 + u.
 __device__ __forceinline__ float s8_f32(uint32_t vx, uint32_t byte) {
   return __uint_as_float(__byte_perm(vx, 0x4B000000u, 0x7440u | byte)) -
          8388736.f;
-}
-
-// Two f32 holding integers of at most 8 significant bits -> bf16x2 {lo, hi};
-// truncation is exact for them.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632u);
 }
 
 // bf16x2 {128 + a, 128 + b} -> {a, b}, exact.

@@ -1,5 +1,6 @@
 // Hopper helpers shared by the port's tensor-core kernels
-// (quant_matmul.cu, flash_attention.cu): cp.async copies, the canonical
+// (quant_matmul.cu, flash_attention.cu, paged_attention.cu): cp.async
+// copies, bf16 rounding of f32 pairs, the canonical
 // 128-byte swizzle, wgmma shared-memory descriptors, the wgmma issue
 // (m64nNk16, bf16 operands, f32 accumulators) and its fences.
 //
@@ -11,6 +12,7 @@
 // in the issue) with `desc_sw128_mn`.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,6 +37,12 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// f32 pair -> bf16x2 {lo, hi}, each rounded to nearest
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }
 
 // make cp.async's writes to shared memory visible to the wgmma (async proxy)

@@ -115,6 +115,10 @@ class EngineConfig:
     byte budget as the bf16 default, so an int8 engine fits ~2x the
     cacheable blocks (more residents, more prefix-cache entries, more
     spec-decode lease headroom).
+
+    `block_size` is the pool's tokens per block. On a card, the paged
+    decode-attention kernel takes a multiple of 16 up to 128 and raises on
+    any other size at the first decode step.
     """
     max_batch: int = 4
     max_seq: int = 256

@@ -66,30 +66,93 @@ def test_quant_matmul_repeat_is_bit_identical(gen, fmt, M, K, N):
         assert torch.equal(qm_ops.quant_matmul(x, t), first)
 
 
-@pytest.mark.parametrize("int8", [False, True])
-@pytest.mark.parametrize("window,cap", [(0, 0.0), (20, 30.0)])
-def test_paged_attention_kernel(gen, int8, window, cap):
+PAGED_TOL = 0.03                # max |err| of the bf16 outputs
+PAGED_ROW_TOL = 0.02            # each (row, head)'s RMS err over its RMS
+# (B, K, G, H, bs, nb, lengths); the first row parks on the scratch block:
+# small heads, carboncall-qwen2-7b's heads at the serving shape, block size
+# 32, head dim 256, long chains that split across many blocks, and head dims
+# below their instantiation's 64 / 128 (steps skipped; int8 stripes of 1, 5
+# and 7 16-byte chunks): the reduced configs' 16, 80, and zamba2-7b's 112
+PAGED_KERNEL_CASES = [
+    (3, 2, 4, 64, 16, 12, [1, 130, 192]),
+    (4, 4, 7, 128, 16, 16, [1, 129, 200, 256]),
+    (2, 4, 7, 128, 32, 8, [1, 250]),
+    (2, 2, 4, 256, 16, 10, [1, 160]),
+    (3, 4, 7, 128, 16, 256, [1, 4096, 2077]),
+    (8, 8, 4, 128, 16, 64, [1, 1024, 1000, 513, 1024, 17, 999, 1024]),
+    (3, 1, 4, 16, 16, 12, [1, 130, 192]),
+    (2, 4, 7, 80, 16, 10, [1, 160]),
+    (4, 8, 1, 112, 32, 8, [1, 129, 200, 256]),
+]
+
+
+def _paged_case(gen, B, K, G, H, bs, nb, lengths, int8):
+    """q (B, 1, K * G, H) bf16, pools of B * nb + 1 blocks (bf16, or int8
+    with scales) whose tables point at permuted blocks; row 0 on block 0."""
     from repro_torch.models.transformer import requant_cache
-    B, K, G, H, bs, nb = 3, 2, 4, 64, 16, 12
     q = torch.randn((B, 1, K * G, H), generator=gen, device="cuda").bfloat16()
     kf = torch.randn((B * nb + 1, bs, K, H), generator=gen, device="cuda")
     vf = torch.randn((B * nb + 1, bs, K, H), generator=gen, device="cuda")
-    bt = (torch.arange(B * nb, device="cuda", dtype=torch.int32)
-          .reshape(B, nb) + 1)
+    perm = torch.randperm(B * nb, generator=gen, device="cuda") + 1
+    bt = perm.to(torch.int32).reshape(B, nb)
     bt[0] = 0                                       # dead row on scratch
-    lens = torch.tensor([1, 130, 192], dtype=torch.int32, device="cuda")
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     if int8:
         enc = requant_cache({"k_scale": True}, kf, vf)
-        kp, vp, kw = enc["k"], enc["v"], dict(k_scale=enc["k_scale"],
-                                              v_scale=enc["v_scale"])
-    else:
-        kp, vp, kw = kf.bfloat16(), vf.bfloat16(), {}
+        return q, enc["k"], enc["v"], bt, lens, dict(k_scale=enc["k_scale"],
+                                                     v_scale=enc["v_scale"])
+    return q, kf.bfloat16(), vf.bfloat16(), bt, lens, {}
+
+
+def _paged_check(got, want):
+    diff = got.float() - want.float()
+    assert torch.isfinite(got).all()
+    assert diff.abs().max().item() < PAGED_TOL
+    rms = want.float().square().mean(-1).sqrt().clamp_min(1e-6)
+    assert (diff.square().mean(-1).sqrt() / rms).max().item() < PAGED_ROW_TOL
+
+
+@pytest.mark.parametrize("case", PAGED_KERNEL_CASES)
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (20, 30.0)])
+def test_paged_attention_kernel(gen, case, int8, window, cap):
+    q, kp, vp, bt, lens, kw = _paged_case(gen, *case, int8)
+    before = kernels.launch_counts()["paged_attention"]
     got = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, cap=cap,
-                                        window=window, num_splits=2, **kw)
+                                        window=window, **kw)
     want = pa_ops.paged_attention_ref(q, kp, vp, bt, lens, cap=cap,
                                       window=window, **kw)
     torch.cuda.synchronize()
-    assert (got.float() - want.float()).abs().max().item() < 0.03
+    assert kernels.launch_counts()["paged_attention"] == before + 1
+    _paged_check(got, want)
+
+
+@pytest.mark.parametrize("case", PAGED_KERNEL_CASES[1:3] + PAGED_KERNEL_CASES[4:])
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_repeat_is_bit_identical(gen, case, int8):
+    """The splits merge in split order and the warps in warp order, so
+    launches agree bit for bit, whichever block of a row arrives last."""
+    q, kp, vp, bt, lens, kw = _paged_case(gen, *case, int8)
+    first = pa_ops.paged_decode_attention(q, kp, vp, bt, lens, window=48,
+                                          **kw)
+    for _ in range(3):
+        assert torch.equal(pa_ops.paged_decode_attention(
+            q, kp, vp, bt, lens, window=48, **kw), first)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_forced_splits(gen, int8):
+    """Every split count from 1 to nb (split boundaries anywhere on the
+    chain) within the same tolerance as the planned split."""
+    B, K, G, H, bs, nb, lengths = PAGED_KERNEL_CASES[0]
+    q, kp, vp, bt, lens, kw = _paged_case(gen, B, K, G, H, bs, nb, lengths,
+                                          int8)
+    want = pa_ops.paged_attention_ref(q, kp, vp, bt, lens, **kw)
+    for splits in range(1, nb + 1):
+        got = pa_ops.paged_decode_attention(q, kp, vp, bt, lens,
+                                            num_splits=splits, **kw)
+        torch.cuda.synchronize()
+        _paged_check(got, want)
 
 
 # (B, Sq, Skv, N, K, H, causal, window, cap), q_offset = Skv - Sq: GQA

@@ -113,7 +113,14 @@ def _int8(pool):
 PAGED = [
     (4, 4, 2, 64, 16, 16, [1, 100, 129, 256], 0.0, 0),
     (3, 8, 2, 32, 16, 9, [144, 17, 140], 30.0, 24),  # softcap, window,
-]                                                    # ragged last split
+                                                     # ragged last split
+    (2, 32, 8, 32, 16, 6, [1, 90], 0.0, 0),          # G 4 over K 8
+    (2, 8, 1, 64, 16, 8, [100, 37], 0.0, 0),         # MQA: G 8 over K 1
+    (2, 4, 2, 256, 16, 4, [50, 64], 0.0, 0),         # H 256
+    (2, 4, 2, 32, 32, 5, [150, 33], 0.0, 0),         # block size 32
+    (2, 4, 2, 32, 16, 8, [128, 100], 0.0, 20),       # window skips blocks
+    (2, 8, 2, 32, 16, 6, [96, 70], 50.0, 0),         # softcap 50
+]
 
 
 @pytest.mark.parametrize("B,N,K,H,bs,nb,lengths,cap,window", PAGED)
@@ -151,6 +158,163 @@ def test_split_counts_and_fallback_predicate():
         [ref_pa_ops.default_num_splits(n) for n in (1, 8, 9, 16, 17)]
     assert pa_ops.paged_attention_uses_fallback("cpu")
     assert not pa_ops.paged_attention_uses_fallback("cuda")
+
+
+# (B, K, G, H, bs, nb, int8): the serving shape (qwen2-7b heads, max_seq
+# 256, block size 16) in both pool types, the runtime's (max_batch 2), long
+# chains, llama-3.1-8b's heads at block size 32, MQA, H 256 with block
+# sizes 128 and 16, many short rows, one very long chain, and the head dims
+# of the reduced configs (16) and zamba2-7b (112, MHA)
+PAGED_PLAN_CASES = [
+    (4, 4, 7, 128, 16, 16, False), (4, 4, 7, 128, 16, 16, True),
+    (2, 4, 7, 128, 16, 16, False), (8, 4, 7, 128, 16, 256, False),
+    (32, 4, 7, 128, 16, 64, True), (4, 8, 4, 128, 32, 8, False),
+    (1, 1, 8, 64, 16, 9, False), (2, 2, 4, 256, 128, 4, False),
+    (2, 2, 4, 256, 16, 512, False), (64, 8, 8, 128, 16, 2, False),
+    (1, 4, 7, 128, 16, 2048, True), (4, 1, 4, 16, 16, 16, True),
+    (4, 32, 1, 112, 16, 16, False), (4, 32, 1, 112, 128, 2, True)]
+
+
+def _chunks_cover_chain(p, nb):
+    """Each row's chain blocks [0, nb) fall into exactly one split's chunk,
+    in whole pool blocks, in order, none of them empty."""
+    seen = np.zeros(nb, np.int64)
+    for s in range(p.splits):
+        lo, hi = s * p.blocks_per_split, min(nb, (s + 1) * p.blocks_per_split)
+        assert lo < hi
+        seen[lo:hi] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("B,K,G,H,bs,nb,int8", PAGED_PLAN_CASES)
+def test_paged_attention_plan(B, K, G, H, bs, nb, int8):
+    """The planned split covers every chain block once in whole pool
+    blocks; a block's rings and table entries fit in shared memory; the
+    grid, warps and workspace follow the split; the serving shape fills at
+    least one wave of 132 SMs; an explicit split count cuts the chain as
+    the JAX package does."""
+    for num_splits in (None, 1, 3, nb):
+        p = pa_ops.plan(B, K, G, H, bs, nb, 132, int8, num_splits)
+        _chunks_cover_chain(p, nb)
+        if num_splits is not None:
+            assert p.blocks_per_split == -(-nb // min(num_splits, nb))
+        assert p.grid == (p.splits, K, B)
+        assert 1 <= p.warps <= pa_ops.MAX_WARPS
+        assert p.warps * pa_ops.TILE <= p.blocks_per_split * bs
+        assert p.smem == pa_ops.smem_bytes(H, int8, p.warps,
+                                           p.blocks_per_split)
+        assert p.smem <= pa_ops.SMEM_MAX
+        # the warps' states meet over the rings after the chain
+        assert p.warps * G * H * 4 <= p.warps * pa_ops.STAGES * \
+            pa_ops.stage_bytes(H, int8)
+        if p.splits > 1:
+            assert p.ws_floats == B * K * p.splits * G * (H + 2)
+            assert p.counters == B * K
+        else:
+            assert p.ws_floats == p.counters == 0
+    p = pa_ops.plan(B, K, G, H, bs, nb, 132, int8)
+    if B * K * nb >= 132:
+        assert B * K * p.splits >= 132
+    if (B, K, G, H, bs, nb) == (4, 4, 7, 128, 16, 16):
+        assert p.grid == (16, 4, 4) and p.warps == 1
+
+
+def _fake_paged_lib(monkeypatch, calls):
+    class FakeLib:
+        def paged_attention(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(pa_ops, "_lib", FakeLib)
+    monkeypatch.setattr(pa_ops, "_stream", lambda device: 0)
+    monkeypatch.setattr(pa_ops, "_sm_count", lambda device: 132)
+    monkeypatch.setattr(pa_ops, "_WORKSPACE", {})
+
+
+def _paged_zeros(B, K, G, H, bs, nb, int8, q_dtype=torch.bfloat16):
+    q = torch.zeros((B, K, G, H), dtype=q_dtype)
+    pool = torch.zeros((B * nb + 1, bs, K, H),
+                       dtype=torch.int8 if int8 else torch.bfloat16)
+    kw = {}
+    if int8:
+        kw = dict(k_scale=torch.ones((B * nb + 1, bs, K)),
+                  v_scale=torch.ones((B * nb + 1, bs, K)))
+    bt = torch.zeros((B, nb), dtype=torch.int32)
+    lens = torch.ones((B,), dtype=torch.int32)
+    return q, pool, pool.clone(), bt, lens, kw
+
+
+@pytest.mark.parametrize("B,K,G,H,bs,nb,int8,num_splits", [
+    (4, 4, 7, 128, 16, 16, False, None), (4, 4, 7, 128, 16, 16, True, None),
+    (2, 8, 4, 64, 32, 8, False, 1), (3, 2, 8, 256, 16, 12, True, 5)])
+def test_paged_attention_one_launch(monkeypatch, B, K, G, H, bs, nb, int8,
+                                    num_splits):
+    """One call of the wrapper is one call of the library's launcher with
+    the call's shapes and the plan's split and warps, and one count on the
+    launch counter; a workspace only with more than one split, which a
+    second call does not grow."""
+    calls = []
+    _fake_paged_lib(monkeypatch, calls)
+    q, kp, vp, bt, lens, kw = _paged_zeros(B, K, G, H, bs, nb, int8)
+    before = kernels.launch_counts()["paged_attention"]
+    out = pa_ops.launch(q, kp, vp, bt, lens, cap=50.0, window=48,
+                        num_splits=num_splits, **kw)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert kernels.launch_counts()["paged_attention"] == before + 1
+    assert len(calls) == 1
+    args = calls[0]
+    p = pa_ops.plan(B, K, G, H, bs, nb, 132, int8, num_splits)
+    assert args[10:18] == (B, K, G, H, bs, nb, p.blocks_per_split, p.warps)
+    assert args[18:] == (50.0, 48, 0)
+    assert args[9] == out.data_ptr()
+    assert (args[3] is None) == (not int8)
+    assert (args[7] is None) == (args[8] is None) == (p.splits == 1)
+    if p.splits > 1:
+        ws, counters = pa_ops._WORKSPACE[q.device]
+        assert ws.numel() >= p.ws_floats
+        assert counters.numel() >= p.counters and not counters.any()
+        pa_ops.launch(q, kp, vp, bt, lens, num_splits=num_splits, **kw)
+        again = pa_ops._WORKSPACE[q.device]
+        assert again[0] is ws and again[1] is counters
+        assert len(calls) == 2
+
+
+@pytest.mark.parametrize("case", ["G9", "H72", "H272", "bs8", "f16",
+                                  "pool_dtype", "build"])
+def test_paged_attention_refuses(monkeypatch, case):
+    """The kernel path raises for what the kernel does not take, and when
+    the library does not build: it counts no launch, calls no launcher and
+    never reaches the plain version."""
+    calls, plain = [], []
+    _fake_paged_lib(monkeypatch, calls)
+    monkeypatch.setattr(pa_ops, "paged_attention_uses_fallback",
+                        lambda device: False)
+    monkeypatch.setattr(pa_ops, "paged_attention_ref",
+                        lambda *a, **k: plain.append(a))
+    K, G, H, bs = 2, 4, 64, 16
+    if case == "G9":
+        K, G = 1, 9
+    elif case in ("H72", "H272"):
+        H = int(case[1:])
+    elif case == "bs8":
+        bs = 8
+    q, kp, vp, bt, lens, kw = _paged_zeros(
+        2, K, G, H, bs, 4, False,
+        torch.float16 if case == "f16" else torch.bfloat16)
+    if case == "pool_dtype":
+        vp = vp.to(torch.float16)
+    if case == "build":
+        def broken():
+            raise build.KernelBuildError("nvcc failed")
+        monkeypatch.setattr(pa_ops, "_lib", broken)
+    want = {"f16": TypeError, "pool_dtype": TypeError,
+            "build": build.KernelBuildError}.get(case, ValueError)
+    before = kernels.launch_counts()["paged_attention"]
+    with pytest.raises(want):
+        pa_ops.paged_decode_attention(q.reshape(2, 1, K * G, H), kp, vp, bt,
+                                      lens, **kw)
+    assert kernels.launch_counts()["paged_attention"] == before
+    assert not calls and not plain
 
 
 PLAN_CASES = [(M, K, N, fmt) for fmt in ("q8", "q4") for M, K, N in [
