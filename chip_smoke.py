@@ -10,9 +10,9 @@ Phases, each raising on its first fault (the script then exits non-zero):
   1. device  — the card's name and power limit (nvidia-smi), capability 9.0;
   2. build   — every CUDA source under src/repro_torch/csrc built at once
                with nvcc for sm_90a; the ptxas register/spill lines (the
-               quant-matmul, flash-attention and paged-attention kernels
-               must not spill) and the tensor-core instructions (HMMA,
-               HGMMA) in each of their kernels' SASS;
+               quant-matmul, flash-attention, paged-attention and ssd
+               kernels must not spill) and the tensor-core instructions
+               (HMMA, HGMMA) in each of their kernels' SASS;
   3. kernels — each hand-written kernel against its plain PyTorch version on
                the same inputs at the serving path's shapes, with its time
                (CUDA events; device time from the profiler where the host's
@@ -63,7 +63,7 @@ twice with bit-identical results; it includes sim_scores, at the runtime's index
 m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
 held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
 shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
-held to 0.05 on y and the final state; decode attention at PAGED_CASES,
+held to 0.05 on y and the final state with bit-identical repeats; decode attention at PAGED_CASES,
 bf16 and int8 pools, within PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row,
 PAGED_ROW_TOL at the planned split, one split and nb splits, with
 bit-identical repeats, timed by device time against its byte bound and the
@@ -153,12 +153,18 @@ SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (256, 33), (256, 64),
               (65536, 1), (65536, 3),
               (65536, 8)]       # (N, m) at d = 256; N = 256 is the runtime's
 SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
-# (label, B, S, H, P, G, N) at chunk 128: mamba2-370m, then zamba2-7b's heads
-SSD_SHAPES = [("mamba2-370m", 1, 2048, 32, 64, 1, 128),
-              ("mamba2-370m", 4, 128, 32, 64, 1, 128),
-              ("mamba2-370m", 2, 512, 32, 64, 1, 128),
-              ("mamba2-370m", 4, 512, 32, 64, 1, 128),
-              ("zamba2-7b", 1, 1024, 112, 64, 1, 64)]
+# (label, B, S, H, P, G, N, chunk): mamba2-370m at B 1 S 2048, its serve
+# admissions (4 x 128, 4 x 512), S 4096 (32 chunks in the state pass) and a
+# chunk of 40 rows; zamba2-7b's heads
+SSD_SHAPES = [("mamba2-370m", 1, 2048, 32, 64, 1, 128, 128),
+              ("mamba2-370m", 4, 128, 32, 64, 1, 128, 128),
+              ("mamba2-370m", 2, 512, 32, 64, 1, 128, 128),
+              ("mamba2-370m", 4, 512, 32, 64, 1, 128, 128),
+              ("mamba2-370m", 1, 4096, 32, 64, 1, 128, 128),
+              ("mamba2-370m", 2, 120, 32, 64, 1, 128, 40),
+              ("zamba2-7b", 1, 1024, 112, 64, 1, 64, 128)]
+# the ssd kernel's f32 operands enter its bf16 products as hi + lo parts
+SSD_SPLIT_PARTS = 2
 MAMBA_LOGIT_REL = 0.02          # of max |logit| (tests/test_torch_mamba2.py)
 # runtime phase: a clean grid, then a dirty one, 10-minute steps
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
@@ -182,7 +188,8 @@ SOURCES = {
 MODEL_KERNELS = ("q8_matmul", "q4_matmul", "paged_attention",
                  "flash_attention")
 # sources whose every kernel must show tensor-core instructions and no spill
-TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention", "paged_attention")
+TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention", "paged_attention",
+                       "ssd")
 
 
 def fail(msg: str, code: int = 1):
@@ -809,40 +816,57 @@ def check_sim_scores(records):
             rec.bound_ms, rec.bound_by = b, by
 
 
-def ssd_bound(Bb, S, H, P, G, N, Q=128):
-    """Least time for one scan: each input read once and each output
-    written once (bf16 x, B, C; f32 dt, A, y, state), against the operations
-    the chunked form needs per chunk and head. The two masked Q x Q products
-    need only the Q(Q+1)/2 rows on and below the diagonal: C B^T (2N flops a
-    row) has bf16 operands, so it is priced at the bf16 tensor-core rate
-    (f32 accumulation gives the same exact products); L (x dt) (2P flops a
-    row), C state^T and the state update (2QPN flops each) have f32 operands
-    and are priced at the f32 CUDA-core rate. The two times add."""
+def ssd_work(Bb, S, H, P, G, N, Q):
+    """Bytes and flops of one scan: each input read once and each output
+    written once (bf16 x, B, C; f32 dt, A, y, state), and the operations the
+    chunked form needs per chunk and head. The two masked Q x Q products
+    need only the Q(Q+1)/2 pairs on and below the diagonal: C B^T (2N flops
+    a pair) and L (x dt) (2P); C state^T and the state update take 2QPN
+    each. Returns (bytes, C B^T flops, the other products' flops)."""
     nbytes = (Bb * S * H * P * 2 + Bb * S * H * 4 + H * 4
               + 2 * Bb * S * G * N * 2 + Bb * S * H * P * 4
               + Bb * H * P * N * 4)
     q = min(Q, S)
     tiles = Bb * H * (S // q)
     tri = q * (q + 1) // 2
-    flops_bf16 = tiles * 2 * tri * N
-    flops_f32 = tiles * (2 * tri * P + 4 * q * P * N)
-    # bound_ms prices at one rate; express the bf16 work in f32-rate flops
+    return (nbytes, tiles * 2 * tri * N,
+            tiles * (2 * tri * P + 4 * q * P * N))
+
+
+def ssd_bound(Bb, S, H, P, G, N, Q=128):
+    """Least time for one scan at the precision SSD_TOL accepts: C B^T has
+    bf16 operands, exact on the bf16 tensor cores with f32 accumulation; the
+    three products with an f32 operand need more than bf16 (bf16 operands
+    miss SSD_TOL), priced at the route the kernel takes, two bf16 parts a
+    product (989 / 2 TFLOP/s); the two times add."""
+    nbytes, flops_bf16, flops_f32 = ssd_work(Bb, S, H, P, G, N, Q)
+    return bound_ms(nbytes, flops_bf16 + SSD_SPLIT_PARTS * flops_f32,
+                    BF16_FLOPS)
+
+
+def ssd_bound_f32(Bb, S, H, P, G, N, Q=128):
+    """The same with the f32-operand products at the f32 CUDA-core rate
+    (how the bound was priced before the tensor-core kernel)."""
+    nbytes, flops_bf16, flops_f32 = ssd_work(Bb, S, H, P, G, N, Q)
     return bound_ms(nbytes, flops_f32 + flops_bf16 * F32_FLOPS / BF16_FLOPS,
                     F32_FLOPS)
 
 
 def check_ssd(records):
     """The SSD chunk scan on bf16 x, B, C (the model's dtypes) against the
-    plain scan on the same values in f32, at the mamba2-370m shapes the
-    serving run gives it (its two admissions pad to 4 x 128 and 4 x 512),
-    at longer prompts and at zamba2-7b's heads. The kernels line reports
-    mamba2-370m at B = 1, S = 2048."""
+    plain scan on the same values in f32, at SSD_SHAPES: the mamba2-370m
+    shapes the serving run gives it (its two admissions pad to 4 x 128 and
+    4 x 512), longer prompts, a chunk of 40 rows and zamba2-7b's heads. Each
+    shape is launched twice with bit-identical results. Times by device
+    time (the one kernel a call runs) with CUDA events beside, against the
+    bound at the precision the tolerance accepts and the f32-priced one.
+    The kernels line reports mamba2-370m at B = 1, S = 2048."""
     import torch
     from repro_torch.kernels.ssd import ops as ssd_ops
     from repro_torch.kernels.ssd.ref import ssd_chunked
     rec = records["ssd_bshp"]
     g = torch.Generator(device="cuda").manual_seed(5)
-    for label, Bb, S, H, P, G, N in SSD_SHAPES:
+    for label, Bb, S, H, P, G, N, Q in SSD_SHAPES:
         x = torch.randn((Bb, S, H, P), generator=g, device="cuda").bfloat16()
         dt = torch.nn.functional.softplus(
             torch.randn((Bb, S, H), generator=g, device="cuda"))
@@ -851,30 +875,40 @@ def check_ssd(records):
                                 device="cuda")).bfloat16()
         Cm = (0.3 * torch.randn((Bb, S, G, N), generator=g,
                                 device="cuda")).bfloat16()
-        run = lambda: ssd_ops.launch(x, dt, A, Bm, Cm, chunk=128)  # noqa: E731
+        run = lambda: ssd_ops.launch(x, dt, A, Bm, Cm, chunk=Q)  # noqa: E731
         y, fs = run()
+        y2, fs2 = run()
         y_ref, fs_ref = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(),
-                                    128)
+                                    Q)
         torch.cuda.synchronize()
-        err = max((y - y_ref).abs().max().item(),
-                  (fs - fs_ref).abs().max().item())
+        same = torch.equal(y, y2) and torch.equal(fs, fs2)
+        err_y = (y - y_ref).abs().max().item()
+        err_fs = (fs - fs_ref).abs().max().item()
+        err = max(err_y, err_fs)
         ok = bool(torch.isfinite(y).all().item()
-                  and torch.isfinite(fs).all().item()) and err < SSD_TOL
+                  and torch.isfinite(fs).all().item()) and err < SSD_TOL \
+            and same
         ms = time_ms(run, iters=20)
         dev_ms = kernel_device_ms(run, "ssd_kernel", n=20)
-        plain = lambda: ssd_chunked(x, dt, A, Bm, Cm, 128)  # noqa: E731
+        plain = lambda: ssd_chunked(x, dt, A, Bm, Cm, Q)  # noqa: E731
         pms = time_ms(plain, iters=5, warmup=1)
-        b, by = ssd_bound(Bb, S, H, P, G, N)
-        log(f"  ssd_bshp {label} B={Bb} S={S} H={H} P={P} N={N}: "
-            f"max_abs_err={err:.2e} (tol {SSD_TOL}) ms={ms:.4f} "
+        b, by = ssd_bound(Bb, S, H, P, G, N, Q)
+        b32, _ = ssd_bound_f32(Bb, S, H, P, G, N, Q)
+        p = ssd_ops.plan(Bb, S, H, P, G, N, Q, ssd_ops._sm_count(x.device))
+        log(f"  ssd_bshp {label} B={Bb} S={S} H={H} P={P} N={N} Q={Q} "
+            f"grid={p.grid}: max_abs_err y={err_y:.2e} state={err_fs:.2e} "
+            f"(tol {SSD_TOL}) max|y|={y_ref.abs().max().item():.2f} repeat "
+            f"{'bit-identical' if same else 'DIFFERS'} ms={ms:.4f} "
             f"device_ms={dev_ms:.4f} plain_ms={pms:.4f} bound_ms={b:.5f} "
-            f"({by}) {'ok' if ok else 'MISMATCH'}")
+            f"({by}) bound/device={b / dev_ms:.3f} bound_f32_ms={b32:.5f} "
+            f"{'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"ssd_bshp {label} B={Bb} S={S} err {err}")
+            fail(f"ssd_bshp {label} B={Bb} S={S} err {err} repeat "
+                 f"bit-identical {same}")
         rec.max_abs_err = max(rec.max_abs_err, err)
         if (label, Bb, S) == ("mamba2-370m", 1, 2048):
             rec.ms, rec.plain_ms, rec.bound_ms, rec.bound_by = ms, pms, b, by
-        del x, dt, Bm, Cm, y, fs, y_ref, fs_ref
+        del x, dt, Bm, Cm, y, fs, y2, fs2, y_ref, fs_ref
     torch.cuda.empty_cache()
 
 

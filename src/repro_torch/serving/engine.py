@@ -46,8 +46,8 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.config import ModelConfig, RuntimeConfig
-from repro_torch.kernels.paged_attention.ops import \
-    paged_attention_uses_fallback
+from repro_torch.kernels.paged_attention.ops import (
+    check_shapes as check_paged_shapes, paged_attention_uses_fallback)
 from repro_torch.models import get_model
 from repro_torch.models.transformer import (paged_block_bytes,
                                             quantize_kv_for_cache)
@@ -114,6 +114,16 @@ def _pow2(n: int, cap: int) -> int:
     while p < n:
         p <<= 1
     return min(p, cap)
+
+
+def check_paged_kernel(cfg: ModelConfig, block_size: int):
+    """Raise ValueError, naming what the paged decode kernel takes, when a
+    CUDA engine's pool could not be read by it: a block size that is not a
+    multiple of 16 up to 128, more than 8 query heads a kv head, or a head
+    dim that is not a multiple of 16 up to 256."""
+    kv = cfg.num_kv_heads
+    check_paged_shapes(1, kv, cfg.num_heads // max(kv, 1),
+                       cfg.resolved_head_dim, block_size, 1)
 
 
 def refuse_unported(config: EngineConfig, mesh=None):
@@ -239,6 +249,11 @@ class ServingEngine:
         block tables of the paged layout."""
         cfg, max_batch = self.cfg, self.max_batch
         self.block_size = block_size = config.block_size
+        # a CPU engine reads its pool through the plain version, which takes
+        # any block size; the kernel's limits are checked here, not at the
+        # first decode step
+        if not paged_attention_uses_fallback(self.device):
+            check_paged_kernel(cfg, block_size)
         self.blocks_per_slot = -(-self.max_seq // block_size)
         num_blocks = config.num_blocks
         if num_blocks is None:

@@ -117,8 +117,8 @@ class EngineConfig:
     spec-decode lease headroom).
 
     `block_size` is the pool's tokens per block. On a card, the paged
-    decode-attention kernel takes a multiple of 16 up to 128 and raises on
-    any other size at the first decode step.
+    decode-attention kernel takes a multiple of 16 up to 128; a CUDA
+    engine built with any other size raises ValueError at construction.
     """
     max_batch: int = 4
     max_seq: int = 256

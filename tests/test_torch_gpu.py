@@ -272,21 +272,34 @@ def test_sim_scores_kernel_query_groups(gen, m):
 SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
 
 
-@pytest.mark.parametrize("B,S,H,P,G,N,Q", [
-    (2, 256, 4, 64, 1, 128, 128), (1, 128, 8, 32, 2, 64, 64),
-    (2, 64, 4, 16, 1, 32, 32), (1, 256, 2, 64, 1, 16, 64),
-    (1, 40, 2, 16, 1, 16, 20), (2, 24, 4, 64, 2, 128, 128)])
-def test_ssd_kernel(gen, B, S, H, P, G, N, Q):
-    """The SSD kernel on bf16 x, B, C against the plain scan on the same
-    values in f32; chunks shorter than 128 rows (20, and 24 = S) included."""
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_chunked
+def _ssd_inputs(gen, B, S, H, P, G, N):
     x = torch.randn((B, S, H, P), generator=gen, device="cuda").bfloat16()
     dt = torch.nn.functional.softplus(
         torch.randn((B, S, H), generator=gen, device="cuda"))
     A = -torch.exp(0.5 * torch.randn((H,), generator=gen, device="cuda"))
     Bm = (0.3 * torch.randn((B, S, G, N), generator=gen, device="cuda")).bfloat16()
     Cm = (0.3 * torch.randn((B, S, G, N), generator=gen, device="cuda")).bfloat16()
+    return x, dt, A, Bm, Cm
+
+
+# small shapes with chunks shorter than 128 rows (20, and 24 = S), G 2 and
+# N 16-128; then mamba2-370m at B 1 S 2048 and its 4 x 512 admission, and
+# zamba2-7b's heads (H 112, N 64)
+SSD_KERNEL_CASES = [
+    (2, 256, 4, 64, 1, 128, 128), (1, 128, 8, 32, 2, 64, 64),
+    (2, 64, 4, 16, 1, 32, 32), (1, 256, 2, 64, 1, 16, 64),
+    (1, 40, 2, 16, 1, 16, 20), (2, 24, 4, 64, 2, 128, 128),
+    (1, 2048, 32, 64, 1, 128, 128), (4, 512, 32, 64, 1, 128, 128),
+    (1, 1024, 112, 64, 1, 64, 128)]
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", SSD_KERNEL_CASES)
+def test_ssd_kernel(gen, B, S, H, P, G, N, Q):
+    """The SSD kernel on bf16 x, B, C against the plain scan on the same
+    values in f32; chunks shorter than 128 rows (20, and 24 = S) included."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    x, dt, A, Bm, Cm = _ssd_inputs(gen, B, S, H, P, G, N)
     before = kernels.launch_counts()["ssd_bshp"]
     y, fs = ssd_ops.launch(x, dt, A, Bm, Cm, chunk=Q)
     y_ref, fs_ref = ssd_chunked(x.float(), dt, A, Bm.float(), Cm.float(), Q)
@@ -295,3 +308,17 @@ def test_ssd_kernel(gen, B, S, H, P, G, N, Q):
     assert torch.isfinite(y).all() and torch.isfinite(fs).all()
     assert (y - y_ref).abs().max().item() < SSD_TOL
     assert (fs - fs_ref).abs().max().item() < SSD_TOL
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,Q", [
+    (2, 256, 4, 64, 1, 128, 128), (1, 40, 2, 16, 1, 16, 20),
+    (4, 512, 32, 64, 1, 128, 128), (1, 1024, 112, 64, 1, 64, 128)])
+def test_ssd_repeat_is_bit_identical(gen, B, S, H, P, G, N, Q):
+    """Every sum of the three phases has a fixed order: a repeat launch on
+    the same inputs gives equal bits, y and the final state."""
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    ins = _ssd_inputs(gen, B, S, H, P, G, N)
+    y, fs = ssd_ops.launch(*ins, chunk=Q)
+    y2, fs2 = ssd_ops.launch(*ins, chunk=Q)
+    torch.cuda.synchronize()
+    assert torch.equal(y, y2) and torch.equal(fs, fs2)

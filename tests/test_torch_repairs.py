@@ -11,6 +11,10 @@
     must consume the CPU generator exactly as a CPU draw does.
   * The engine's and the executor's refusals name the ROADMAP items 4.1,
     4.2 and 4.3.
+  * A CUDA paged engine checks, when it is built, that the paged decode
+    kernel takes its block size (a multiple of 16 up to 128), its query
+    heads per kv head (at most 8) and its head dim; a CPU engine, whose
+    decode reads through the plain version, takes any block size.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -33,6 +37,7 @@ from repro_torch.kernels.topk_sim import ops
 from repro_torch.kernels.topk_sim.ref import sim_scores_ref
 from repro_torch.serving import (EngineConfig, ServingEngine,
                                  SpecDecodeConfig)
+from repro_torch.serving import engine as engine_mod
 
 SCORE_TOL = 1e-5
 
@@ -107,3 +112,37 @@ def test_refusals_name_the_roadmap_items(config, item, entry):
         else:
             EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX,
                            config=config, device="cpu")
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+@pytest.mark.parametrize("bs,ok", [(8, False), (24, False), (144, False),
+                                   (16, True), (32, True), (128, True)])
+def test_paged_engine_checks_the_kernels_block_size(reduced, bs, ok):
+    """The check a CUDA paged engine runs at construction, alone, at the
+    full-width heads and the reduced ones: a block size the kernel does not
+    take raises and names the sizes it takes."""
+    cfg = get_arch("carboncall-qwen2-7b")
+    cfg = reduce_config(cfg) if reduced else cfg
+    if ok:
+        engine_mod.check_paged_kernel(cfg, bs)
+    else:
+        with pytest.raises(ValueError, match="multiple of 16 up to 128"):
+            engine_mod.check_paged_kernel(cfg, bs)
+
+
+def test_paged_engine_refuses_the_block_size_when_built(monkeypatch):
+    """A CPU paged engine takes block size 8 (its decode reads through the
+    plain version); the same engine on a device whose decode would run the
+    kernel (stood in for by the CPU) raises at construction, before any
+    step."""
+    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+    eng = ServingEngine(cfg, None, RuntimeConfig(), kv_layout="paged",
+                        block_size=8, device="cpu")
+    assert eng.block_size == 8 and eng._paged_fallback
+    monkeypatch.setattr(engine_mod, "paged_attention_uses_fallback",
+                        lambda device: False)
+    with pytest.raises(ValueError, match="block size"):
+        ServingEngine(cfg, None, RuntimeConfig(), kv_layout="paged",
+                      block_size=8, device="cpu")
+    ServingEngine(cfg, None, RuntimeConfig(), kv_layout="paged",
+                  block_size=16, device="cpu")
