@@ -59,10 +59,13 @@ The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
 carboncall-qwen2-7b's five (K, N) for M in QM_ROWS (both regimes and their
 edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
 twice with bit-identical results; it includes sim_scores, at the runtime's index
-(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 3 and 8 sentences, and
-m = 33 and 64, which take one launch per group of 32 rows) and at N = 65536,
-held to 1e-5 with the same top 16 and top 32; and the SSD chunk scan at the
-shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
+(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 2, 3 and 8 sentences, and
+m = 33 and 64, one launch each), at a ToolBench-sized catalog (N = 16640)
+and at N = 65536 up to m = 32, held to 1e-5 with the same top 16 and top
+32, and the fused retrieval (raw queries to the top k in one launch) at
+k = 16, 32 and, at N = 256, k = N, with indices equal to the plain
+version's, ties included, and bit-identical repeats; and the SSD chunk
+scan at the shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
 held to 0.05 on y and the final state with bit-identical repeats; decode attention at PAGED_CASES,
 bf16 and int8 pools, within PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row,
 PAGED_ROW_TOL at the planned split, one split and nb splits, with
@@ -149,9 +152,11 @@ FLASH_CASES = [("serve", 4, S, S, 28, 4, 128, True, 0, 0.0)
 FLASH_PRODUCT_HEADS = (16, 64, 112, 128, 256)   # every head_dim in configs/
 PRODUCT_TOL = 1e-5              # max |err| / max |f32 product|
 SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
-SIM_SHAPES = [(256, 1), (256, 3), (256, 8), (256, 33), (256, 64),
-              (65536, 1), (65536, 3),
-              (65536, 8)]       # (N, m) at d = 256; N = 256 is the runtime's
+# (N, m) at d = 256: N = 256 is the runtime's index, 16640 ToolBench's
+# 16,464 RapidAPI tools padded to the index multiple of 256
+SIM_SHAPES = [(256, 1), (256, 2), (256, 3), (256, 8), (256, 33), (256, 64),
+              (16640, 3), (65536, 1), (65536, 3), (65536, 8), (65536, 32)]
+SIM_KS = (16, 32)               # top k of the fused retrieval; and N at 256
 SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
 # (label, B, S, H, P, G, N, chunk): mamba2-370m at B 1 S 2048, its serve
 # admissions (4 x 128, 4 x 512), S 4096 (32 chunks in the state pass) and a
@@ -215,6 +220,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def median_ms(fn, reps: int = 5, iters: int = 100) -> float:
+    """The median of `reps` readings of `time_ms`: calls short enough that
+    the host's launch path sets their time move with the host's load, and
+    the median steadies them."""
+    return sorted(time_ms(fn, iters=iters) for _ in range(reps))[reps // 2]
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
@@ -747,12 +759,35 @@ def check_flash(records, baseline=None):
 
 def _sim_inputs(g, N, m, d=256, pad=16):
     """Unit tool rows with `pad` zero rows at the end (the index padding) and
-    raw query rows, as the selector hands them over."""
+    raw Gaussian query rows, none of them zero: the scores-only check, where
+    every row's dot is real arithmetic."""
     import torch
     tools = torch.nn.functional.normalize(
         torch.randn((N, d), generator=g, device="cuda"), dim=-1)
     tools[N - pad:] = 0.0
     q = torch.randn((m, d), generator=g, device="cuda")
+    return tools.contiguous(), q
+
+
+def _topk_inputs(g, N, m, d=256, pad=16):
+    """Unit tool rows and raw query rows for the fused top-k check. Nine rows
+    in ten point away from the queries (they score below 0), so the `pad`
+    zero rows at the end (the index padding, exact 0.0 ties) reach the top k
+    at N = 256; from m = 3 on, query row 1 is zero, so every row that points
+    away ties at exactly 0.0 too."""
+    import torch
+    F = torch.nn.functional
+    q = torch.randn((m, d), generator=g, device="cuda")
+    if m >= 3:
+        q[1] = 0.0
+    tools = F.normalize(torch.randn((N, d), generator=g, device="cuda"),
+                        dim=-1)
+    away = torch.rand((N,), generator=g, device="cuda") < 0.9
+    noise = torch.randn((N, d), generator=g, device="cuda") * (0.5 / d ** 0.5)
+    tools = torch.where(away[:, None],
+                        F.normalize(-F.normalize(q, dim=-1).sum(0) + noise,
+                                    dim=-1), tools)
+    tools[N - pad:] = 0.0
     return tools.contiguous(), q
 
 
@@ -776,44 +811,103 @@ def kernel_device_ms(fn, key: str, n: int = 50):
 
 
 def check_sim_scores(records):
-    """sim_scores at the runtime's index (N = 256 with 240 tools) and at
-    N = 65536, for m = 1, 3 and 8 sentences: scores within SIM_TOL and the
-    same top 16 and top 32 (ties by lower index) as the plain version. The
-    kernels line reports N = 256, m = 1, the runtime's commonest retrieval."""
+    """Both entries of csrc/topk_sim.cu at SIM_SHAPES (d = 256) against their
+    plain versions: `sim_scores` (unit queries -> (N,) scores) within SIM_TOL
+    with the same top 16 and top 32, and the fused `topk_tools` (raw queries
+    -> top k) at SIM_KS and, at N = 256, k = N, with indices equal to
+    `topk_tools_ref` on the normalised queries, ties included, and scores
+    within SIM_TOL; every launch is repeated and the repeat must match bit
+    for bit. Each gets its events time (the median of 5 readings of 100
+    calls), its profiler device time, its bound and a library composition's
+    time (`matmul` + `amax`; + `torch.topk`). The kernels line reports the
+    fused retrieval at N = 256, m = 1, k = 16, the runtime's commonest."""
     import torch
     from repro_torch.kernels.topk_sim import ops as ts
+    from repro_torch.kernels.topk_sim.ref import topk_tools_ref
     rec = records["sim_scores"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    as_bits = lambda t: t.view(torch.int32)  # noqa: E731
     g = torch.Generator(device="cuda").manual_seed(4)
     for N, m in SIM_SHAPES:
         tools, q_raw = _sim_inputs(g, N, m)
-        q = ts._normalize(q_raw)
-        got = ts.launch(tools, q)
-        want = ts.sim_scores_ref(tools, q)
+        d = tools.shape[1]
+        qn = ts._normalize(q_raw)
+        got, again = ts.launch(tools, qn), ts.launch(tools, qn)
+        want = ts.sim_scores_ref(tools, qn)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
+        same = torch.equal(as_bits(got), as_bits(again))
         same_topk = all(ts.top_k(got, k)[1].tolist()
-                        == ts.top_k(want, k)[1].tolist() for k in (16, 32))
+                        == ts.top_k(want, k)[1].tolist() for k in SIM_KS)
         ok = bool(torch.isfinite(got).all().item()) and err <= SIM_TOL \
-            and same_topk
-        ms = time_ms(lambda: ts.launch(tools, q), iters=100)
-        pms = time_ms(lambda: ts.sim_scores_ref(tools, q), iters=100)
-        lms = time_ms(lambda: torch.matmul(tools, q.T).amax(1), iters=100)
-        dev_ms = kernel_device_ms(lambda: ts.launch(tools, q),
-                                  "sim_scores_kernel")
-        d = tools.shape[1]
+            and same_topk and same
+        pl = ts.plan(N, d, m, 0, sms)
+        run = lambda: ts.launch(tools, qn)  # noqa: E731
+        ms = median_ms(run)
+        pms = median_ms(lambda: ts.sim_scores_ref(tools, qn))
+        lib = lambda: torch.matmul(tools, qn.T).amax(1)  # noqa: E731
+        lms = median_ms(lib)
+        lib_dev = kernel_device_ms(lib, "")
+        dev_ms = kernel_device_ms(run, "sim_scores_kernel")
         nbytes = 4 * (N * d + m * d + N)
         b, by = bound_ms(nbytes, 2.0 * N * d * m, F32_FLOPS)
-        log(f"  sim_scores N={N} d={d} m={m}: max_abs_err={err:.2e} "
-            f"(tol {SIM_TOL}) top16/32 {'equal' if same_topk else 'DIFFER'} "
+        log(f"  sim_scores N={N} d={d} m={m} mq={pl.mq} groups={pl.groups} "
+            f"grid={pl.grid}: max_abs_err={err:.2e} (tol {SIM_TOL}) top16/32 "
+            f"{'equal' if same_topk else 'DIFFER'} "
+            f"repeat {'bit-identical' if same else 'DIFFERS'} "
             f"ms={ms:.5f} device_ms={dev_ms:.5f} plain_ms={pms:.5f} "
-            f"matmul_amax_ms={lms:.5f} "
-            f"bound_ms={b:.6f} ({by}) {'ok' if ok else 'MISMATCH'}")
+            f"matmul_amax_ms={lms:.5f} matmul_amax_device_ms="
+            f"{lib_dev:.5f} bound_ms={b:.6f} ({by}) "
+            f"device/bound={dev_ms / b:.2f} {'ok' if ok else 'MISMATCH'}")
         if not ok:
-            fail(f"sim_scores N={N} m={m} err {err} top-k equal {same_topk}")
+            fail(f"sim_scores N={N} m={m} err {err} top-k equal {same_topk} "
+                 f"repeat bit-identical {same}")
         rec.max_abs_err = max(rec.max_abs_err, err)
-        if (N, m) == (256, 1):
-            rec.ms, rec.plain_ms, rec.library_ms = ms, pms, lms
-            rec.bound_ms, rec.bound_by = b, by
+        tools, q_raw = _topk_inputs(g, N, m)
+        qn = ts._normalize(q_raw)
+        for k in SIM_KS + ((N,) if N == 256 else ()):
+            s, i = ts.topk_tools(tools, q_raw, k=k)
+            s2, i2 = ts.topk_tools(tools, q_raw, k=k)
+            w_s, w_i = topk_tools_ref(tools, qn, k)
+            torch.cuda.synchronize()
+            k_err = (s - w_s).abs().max().item()
+            k_same = torch.equal(as_bits(s), as_bits(s2)) and \
+                torch.equal(i, i2)
+            k_idx = i.tolist() == w_i.tolist()
+            ties = int((w_s == 0).sum().item())
+            k_ok = k_idx and k_same and k_err <= SIM_TOL
+            fused = lambda: ts.topk_tools(tools, q_raw, k=k)  # noqa: E731
+            kms = median_ms(fused)
+            kdev = kernel_device_ms(fused, "topk_kernel")
+            plain = lambda: ts.top_k(ts.sim_scores_ref(  # noqa: E731
+                tools, ts._normalize(q_raw)), k)
+            kpms = median_ms(plain)
+            klib = lambda: torch.topk(  # noqa: E731
+                torch.matmul(tools, qn.T).amax(1), k)
+            klms = median_ms(klib)
+            klib_dev = kernel_device_ms(klib, "")
+            kb, kby = bound_ms(4 * (N * d + m * d) + 12 * k,
+                               2.0 * N * d * m, F32_FLOPS)
+            kplan = ts.plan(N, d, m, k, sms)
+            log(f"  topk_tools N={N} d={d} m={m} k={k} mq={kplan.mq} "
+                f"grid={kplan.grid} {'lists' if kplan.lists else 'sort'}: indices "
+                f"{'equal' if k_idx else 'DIFFER'} ({ties} exact 0.0 "
+                f"ties in the top k) max_abs_err={k_err:.2e} repeat "
+                f"{'bit-identical' if k_same else 'DIFFERS'} "
+                f"ms={kms:.5f} device_ms={kdev:.5f} plain_ms="
+                f"{kpms:.5f} library_ms={klms:.5f} library_device_ms="
+                f"{klib_dev:.5f} bound_ms={kb:.6f} ({kby}) "
+                f"device-scores_device={kdev - dev_ms:.5f} "
+                f"{'ok' if k_ok else 'MISMATCH'}")
+            if not k_ok:
+                fail(f"topk_tools N={N} m={m} k={k}: indices equal {k_idx}, "
+                     f"err {k_err}, repeat bit-identical {k_same}")
+            rec.max_abs_err = max(rec.max_abs_err, k_err)
+            if (N, m, k) == (256, 1, 16):
+                rec.ms, rec.plain_ms, rec.library_ms = kms, kpms, klms
+                rec.bound_ms, rec.bound_by = kb, kby
+        del tools, q_raw, qn
+    torch.cuda.empty_cache()
 
 
 def ssd_work(Bb, S, H, P, G, N, Q):

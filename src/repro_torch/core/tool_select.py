@@ -5,8 +5,9 @@ The port of `repro.core.tool_select`. Pipeline per query:
   2. encode sentences + (pre-built) tool index with the shared embedder,
   3. exact top-k retrieval, Score(t_j) = max_i cos(s_i, t_j) (Eq. 3 — the
      FAISS role): `kernels.topk_sim.ops.topk_tools`, which runs the
-     hand-written CUDA kernel when the index lives on the card and its plain
-     version when it lives on the CPU,
+     hand-written CUDA kernel (one launch from raw query embeddings to the
+     top k) when the index lives on the card and its plain version when it
+     lives on the CPU,
   4. cross-encoder re-rank of the top-k in full context,
   5. adaptive cut: one tool when the margin to the runner-up is decisive,
      else several (reduces prompt tokens vs a fixed k),
@@ -14,8 +15,9 @@ The port of `repro.core.tool_select`. Pipeline per query:
      force-include their tools (catches retrieval misses on entity-ish terms).
 
 The index and the query embeddings live on the selector's device, which
-defaults to the card. Each `retrieve` copies its top-k indices back to the
-host once (the rerank and the cut run in numpy / Python).
+defaults to the card. Each `retrieve` copies its top-k scores and indices
+back to the host in one copy (the rerank and the cut run in numpy /
+Python).
 """
 from __future__ import annotations
 
@@ -107,9 +109,8 @@ class ToolSelector:
         sents = split_sentences(query)
         q_emb = self._encode(sents)
         k = min(self.k * max(1, len(sents) // 2 + 1), self.index.shape[0])
-        scores, idx = topk_ops.topk_tools(self.index, q_emb, k=k)
-        idx = idx.cpu().numpy()
-        scores = scores.cpu().numpy()
+        scores, idx = topk_ops.topk_tools(self.index, q_emb, k=k, host=True)
+        idx, scores = idx.numpy(), scores.numpy()
         keep = idx < self.n_tools
         return list(idx[keep]), list(scores[keep])
 

@@ -12,12 +12,22 @@ def sim_scores_ref(tools: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return sims.amax(dim=1)
 
 
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order f32 scores as `jax.lax.top_k` does: by value,
+    with +0.0 above -0.0 (`b ^ ((b >> 31) & 0x7fffffff)` of the bits b).
+    NaN is out of scope: unit-vector dots do not produce it."""
+    b = scores.to(torch.float32).contiguous().view(torch.int32)
+    return b ^ ((b >> 31) & 0x7fffffff)
+
+
 def top_k(scores: torch.Tensor, k: int):
-    """The k largest scores and their indices, highest first; equal scores
-    keep the lower index first, as `jax.lax.top_k` orders them (padded index
-    rows all score exactly 0.0, so ties are common)."""
-    vals, idx = torch.sort(scores, descending=True, stable=True)
-    return vals[:k], idx[:k]
+    """The k largest scores and their indices, highest first, in the total
+    order `jax.lax.top_k` uses: +0.0 ranks above -0.0, and equal bits keep
+    the lower index first (padded index rows all score exactly 0.0, so ties
+    are common)."""
+    _, idx = torch.sort(order_key(scores), descending=True, stable=True)
+    idx = idx[:k]
+    return scores[idx], idx
 
 
 def topk_tools_ref(tools: torch.Tensor, queries: torch.Tensor, k: int):

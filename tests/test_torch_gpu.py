@@ -12,6 +12,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.paged_attention import ops as pa_ops
 from repro_torch.kernels.quant_matmul import ops as qm_ops
 from repro_torch.kernels.topk_sim import ops as ts_ops
+from repro_torch.kernels.topk_sim.ref import topk_tools_ref
 from repro_torch.quant.qtensor import quantize
 
 pytestmark = pytest.mark.gpu
@@ -222,7 +223,8 @@ def test_flash_attention_products(gen, H):
     assert ((o - o_ref).abs().max() / o_ref.abs().max()).item() < 1e-5
 
 
-@pytest.mark.parametrize("N,d,m,k", [(256, 256, 1, 16), (256, 256, 3, 32),
+@pytest.mark.parametrize("N,d,m,k", [(256, 256, 1, 16), (256, 256, 2, 16),
+                                     (256, 256, 3, 32),
                                      (1024, 256, 8, 16), (512, 64, 5, 8),
                                      (65536, 256, 8, 32), (300, 63, 32, 16)])
 def test_sim_scores_kernel(gen, N, d, m, k):
@@ -254,7 +256,8 @@ def test_sim_scores_kernel(gen, N, d, m, k):
 
 @pytest.mark.parametrize("m", [33, 64])
 def test_sim_scores_kernel_query_groups(gen, m):
-    """More than 32 query rows: one launch per group of 32, merged by max."""
+    """More query rows than a lane holds: groups of 4 looped inside one
+    launch, merged by max."""
     d = 256
     q = torch.nn.functional.normalize(
         torch.randn((m, d), generator=gen, device="cuda"), dim=-1)
@@ -264,9 +267,109 @@ def test_sim_scores_kernel_query_groups(gen, m):
     got = ts_ops.sim_scores(tools, q)
     want = ts_ops.sim_scores_ref(tools, q)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()["sim_scores"] == before + -(-m // 32)
+    assert kernels.launch_counts()["sim_scores"] == before + 1
     assert (got - want).abs().max().item() <= SIM_TOL
     assert ts_ops.top_k(got, 16)[1].tolist() == ts_ops.top_k(want, 16)[1].tolist()
+
+
+def _retrieval(gen, N, d, m):
+    """Unit tools, nine in ten pointing away from the queries, 16 zero pad
+    rows at the end, and raw queries with row 1 zero from m = 3 on: exact
+    0.0 ties reach the top k."""
+    F = torch.nn.functional
+    q = torch.randn((m, d), generator=gen, device="cuda")
+    if m >= 3:
+        q[1] = 0.0
+    tools = F.normalize(torch.randn((N, d), generator=gen, device="cuda"),
+                        dim=-1)
+    away = torch.rand((N,), generator=gen, device="cuda") < 0.9
+    tools[away] = F.normalize(-F.normalize(q, dim=-1).sum(0) + 0.5 / math.sqrt(
+        d) * torch.randn((int(away.sum()), d), generator=gen, device="cuda"),
+        dim=-1)
+    tools[N - 16:] = 0.0
+    return tools, q
+
+
+def _check_topk(tools, q, k):
+    """One launch a call, indices equal to the plain version's (ties
+    included), scores within SIM_TOL, bit-identical repeats, and the same
+    pair through one buffer copied to the host."""
+    before = kernels.launch_counts()["sim_scores"]
+    s, i = ts_ops.topk_tools(tools, q, k=k)
+    s2, i2 = ts_ops.topk_tools(tools, q, k=k)
+    w_s, w_i = topk_tools_ref(tools, ts_ops._normalize(q), k)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["sim_scores"] == before + 2
+    assert s.shape == (k,) and i.dtype == torch.int64
+    assert i.tolist() == w_i.tolist()
+    assert (s - w_s).abs().max().item() <= SIM_TOL
+    assert torch.equal(s.view(torch.int32), s2.view(torch.int32))
+    assert torch.equal(i, i2)
+    h_s, h_i = ts_ops.topk_tools(tools, q, k=k, host=True)  # one copy
+    assert h_s.device.type == h_i.device.type == "cpu"
+    assert torch.equal(h_s.view(torch.int32), s.cpu().view(torch.int32))
+    assert torch.equal(h_i, i.cpu())
+    assert kernels.launch_counts()["sim_scores"] == before + 3
+    return w_s
+
+
+# chip_smoke's SIM_SHAPES: the runtime's index, ToolBench's catalog, 65536
+@pytest.mark.parametrize("N,m", [(256, 1), (256, 2), (256, 3), (256, 8),
+                                 (256, 33), (256, 64), (16640, 3), (65536, 1),
+                                 (65536, 8), (65536, 32)])
+def test_topk_tools_kernel_one_launch(gen, N, m):
+    tools, q = _retrieval(gen, N, 256, m)
+    ties = 0
+    for k in (16, 32) + ((N,) if N == 256 else ()):
+        ties += int((_check_topk(tools, q, k) == 0).sum().item())
+    if N == 256:
+        assert ties > 0                 # exact 0.0 ties were ranked
+
+
+def _dyadic(gen, N, d, m):
+    """Unit tool rows with 16 entries of +-1/4 and raw query rows with 16
+    entries of +-1 (norm 4), row 1 zero from m = 3 on: every product and
+    partial sum is a multiple of 1/16 well inside f32, so each dot is exact
+    whatever the order of its sums and the kernel's scores equal the plain
+    version's bit for bit. The few distinct scores make long runs of exact
+    ties. (On Gaussian rows, two scores closer than f32 rounding may swap
+    places between two summation orders, which an exact comparison of the
+    whole order, k up to N, would count against the kernel.)"""
+    def rows(n, value):
+        pos = torch.rand((n, d), generator=gen, device="cuda").argsort(1)
+        sign = torch.randint(0, 2, (n, 16), generator=gen, device="cuda")
+        out = torch.zeros((n, d), device="cuda")
+        out.scatter_(1, pos[:, :16], value * (2.0 * sign - 1.0))
+        return out
+    tools, q = rows(N, 0.25), rows(m, 1.0)
+    if m >= 3:
+        q[1] = 0.0
+    return tools, q
+
+
+# the list path at k 33-64, the sort path above 64 (in shared memory up to
+# 8192 keys, in device memory past it), the scalar-load rows (d = 63), more
+# than one column slab (d 384, 512), query groups looped, one to many blocks
+@pytest.mark.parametrize("N,d,m,k", [(1, 256, 1, 1), (300, 63, 5, 48),
+                                     (700, 512, 9, 33), (5000, 64, 8, 64),
+                                     (1000, 256, 2, 1000), (1000, 256, 1, 300),
+                                     (20000, 256, 3, 100),
+                                     (40000, 384, 12, 70)])
+def test_topk_tools_kernel_any_k(gen, N, d, m, k):
+    tools, q = _dyadic(gen, N, d, m)
+    w_s = _check_topk(tools, q, k)
+    if N > 1:
+        assert len(set(w_s.tolist())) < k     # ties inside the top k
+    qn = ts_ops._normalize(q)
+    got, want = ts_ops.sim_scores(tools, qn), ts_ops.sim_scores_ref(tools, qn)
+    assert torch.equal(got, want)
+
+
+def test_topk_tools_kernel_refuses_bad_k(gen):
+    tools, q = _retrieval(gen, 256, 256, 1)
+    for k in (0, 257):
+        with pytest.raises(ValueError):
+            ts_ops.topk_tools(tools, q, k=k)
 
 
 SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)

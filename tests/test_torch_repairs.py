@@ -1,10 +1,11 @@
 """Repairs of the port's own faults, on the CPU:
 
-  * `sim_scores` takes any number of query rows: the CUDA wrapper scores
-    them in groups of at most 32 (one kernel launch each) and merges the
-    groups by an elementwise max. The grouping is checked here with the
-    plain scorer per group, against the Pallas kernel in interpret mode and
-    the reference's top k. SCORE_TOL = 1e-5, the retrieval tolerance.
+  * `sim_scores` takes any number of query rows in one launch: `ops.plan`
+    loops groups of 4 rows inside the kernel, the last group padded with
+    copies of row 0, and maxes over the groups. The grouping is checked
+    here with the plain scorer per group, against the Pallas kernel in
+    interpret mode and the reference's top k. SCORE_TOL = 1e-5, the
+    retrieval tolerance.
   * One seed gives the same encoder weights on every device: the selector
     draws its trees on a CPU generator and moves them. The card is stood in
     for by the "meta" device, which keeps shapes and no values: the draw
@@ -52,15 +53,15 @@ def test_sim_scores_grouping_matches_reference(m):
     N, d, k = 256, 64, 16
     tools = _unit(g.standard_normal((N, d))).astype(np.float32)
     queries = _unit(g.standard_normal((m, d))).astype(np.float32)
-    tq = torch.from_numpy(queries)
-    groups = []
-
-    def score(group):
-        groups.append(group.shape[0])
-        return sim_scores_ref(torch.from_numpy(tools), group)
-
-    got = ops.max_over_groups(tq, score)
-    assert groups == [32] * (m // 32) + ([m % 32] if m % 32 else [])
+    pl = ops.plan(N, d, m, 0, sms=132)
+    assert (pl.mq, pl.groups) == (4, -(-m // 4))
+    # the kernel's query rows: m, then copies of row 0 up to whole groups
+    rows = np.concatenate([queries, np.repeat(queries[:1],
+                                              pl.mq * pl.groups - m, 0)])
+    got = torch.stack([
+        sim_scores_ref(torch.from_numpy(tools),
+                       torch.from_numpy(rows[i * pl.mq:(i + 1) * pl.mq]))
+        for i in range(pl.groups)]).amax(0)
     want = np.asarray(ref_kernel.sim_scores(jnp.asarray(tools),
                                             jnp.asarray(queries), bt=256,
                                             interpret=True))

@@ -3,13 +3,22 @@
   * the plain `sim_scores` / `topk_tools` (what a CPU tensor takes in the
     port's wrapper) against the Pallas kernel in interpret mode and the
     reference oracle, on the same numpy inputs, with zero pad rows and exact
-    ties: scores within SCORE_TOL, indices equal, ties included;
+    ties: scores within SCORE_TOL, indices equal, ties included; also at a
+    ToolBench-sized catalog and at k = N with a zero query row among the raw
+    queries;
+  * the plain `top_k` against `jax.lax.top_k` on signed zeros and equal
+    values: +0.0 ranks above -0.0, equal bits by lower index;
   * the tokenizer, the IDF weights and the lexical cross-encoder, exactly;
   * `encode_texts` and `cross_score` with the reference's `init_encoder(0)` /
     `init_cross(0)` weights carried over by `repro_torch.bridge`;
   * `ToolSelector.select` over a stream of seeded queries: chosen tools,
-    retrieved lists and keyword hits identical, scores within SCORE_TOL.
+    retrieved lists and keyword hits identical, scores within SCORE_TOL;
+    `ToolSelector.retrieve` likewise;
+  * the fused retrieval's wrapper, against a stand-in for the CUDA library:
+    one launcher call with the plan's arguments and one launch count, and
+    k outside 1..N refused before any launch.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,15 +65,18 @@ def _unit(x):
     return (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)
 
 
-def _retrieval_inputs(N, d, m, seed):
+def _retrieval_inputs(N, d, m, seed, zero_row=None):
     """Normalised tools, raw queries and the queries normalised. Nine rows in
     ten point away from every query (their scores are negative), so the 16
     zero pad rows at the end, which score exactly 0.0, fall inside the top k
     at the catalog's size; copies of the best row give exact ties at the
-    top."""
+    top. A `zero_row` query row is all zeros: it scores 0.0 on every tool,
+    so every row that points away ties at exactly 0.0."""
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((m, d)).astype(np.float32)
     qn = _unit(q)
+    if zero_row is not None:
+        q[zero_row] = qn[zero_row] = 0.0
     tools = _unit(rng.standard_normal((N, d)))
     away = rng.random(N) < 0.9
     noise = rng.standard_normal((N, d)) * (0.5 / np.sqrt(d))
@@ -110,6 +122,95 @@ def test_topk_orders_ties_by_index():
     vals, idx = ref.top_k(scores, 5)
     assert idx.tolist() == [1, 3, 0, 2, 5]
     assert vals.tolist() == [0.5, 0.5, 0.0, 0.0, 0.0]
+
+
+def test_topk_orders_signed_zeros_as_jax():
+    """+0.0 ranks above -0.0 and equal bits keep the lower index first, as
+    in `jax.lax.top_k` (a stable sort on the values alone ties the zeros)."""
+    scores = np.array([0.0, -0.0, 0.5, 0.0, -0.0, 0.5, -0.1, -0.0, 0.0, 1.0,
+                       -1.0, 0.5], np.float32)
+    want_s, want_i = jax.lax.top_k(jnp.asarray(scores), len(scores))
+    got_s, got_i = ref.top_k(torch.from_numpy(scores), len(scores))
+    assert got_i.tolist() == np.asarray(want_i).tolist()
+    assert got_i.tolist()[:8] == [9, 2, 5, 11, 0, 3, 8, 1]
+    assert np.array_equal(got_s.numpy().view(np.int32),
+                          np.asarray(want_s).view(np.int32))   # zeros' signs
+    for k in (1, 4, 7):
+        assert ref.top_k(torch.from_numpy(scores), k)[1].tolist() == \
+            np.asarray(jax.lax.top_k(jnp.asarray(scores), k)[1]).tolist()
+
+
+@pytest.mark.parametrize("N,m,k", [(16640, 3, 32), (256, 3, 256)])
+def test_topk_tools_matches_reference_with_zero_query(N, m, k):
+    """A ToolBench-sized catalog (16,464 tools padded to 16640 rows) and the
+    full order at k = N, with a zero row among the raw queries: the Pallas
+    path (interpret mode) against the port's CPU path."""
+    tools, q, _ = _retrieval_inputs(N, 256, m, seed=N + k, zero_row=1)
+    w_s, w_i = ref_ops.topk_tools(jnp.asarray(tools), jnp.asarray(q), k=k,
+                                  interpret=True)
+    g_s, g_i = ops.topk_tools(torch.from_numpy(tools), torch.from_numpy(q),
+                              k=k)
+    assert g_i.tolist() == np.asarray(w_i).tolist()
+    assert np.max(np.abs(g_s.numpy() - np.asarray(w_s))) <= SCORE_TOL
+    if k == N:      # the away rows and the pad rows tie at 0.0
+        assert int((g_s == 0).sum()) > N // 2
+
+
+class _FakeDevice:
+    """Stands in for `ops._Device` on the CPU: records the launcher's
+    arguments and the scratch asked for."""
+    sms, counter_ptr = 132, 0
+
+    def __init__(self):
+        self.calls, self.scratch_keys = [], []
+
+    def topk_fn(self, *args):
+        self.calls.append(args)
+        return 0
+
+    def scratch(self, n):
+        self.scratch_keys.append(n)
+        return 0
+
+    def stream(self):
+        return 0
+
+
+@pytest.mark.parametrize("N,d,m,k", [(256, 256, 1, 16), (256, 256, 2, 16),
+                                     (256, 256, 3, 32), (16640, 256, 3, 32),
+                                     (256, 256, 9, 256), (300, 63, 2, 5)])
+def test_topk_wrapper_is_one_launch(monkeypatch, N, d, m, k):
+    fake = _FakeDevice()
+    monkeypatch.setitem(ops._DEVICES, torch.device("cpu"), fake)
+    tools, q = torch.zeros((N, d)), torch.ones((m, d))
+    before = kernels.launch_counts()["sim_scores"]
+    s, i = ops.launch_topk(tools, q, k)
+    assert kernels.launch_counts()["sim_scores"] == before + 1
+    assert len(fake.calls) == 1 and s.shape == i.shape == (k,)
+    assert (s.dtype, i.dtype) == (torch.float32, torch.int64)
+    vec = d % 4 == 0
+    p = ops.plan(N, d, m, k, 132, vec)
+    args = fake.calls[0]
+    assert args[:4] == (tools.data_ptr(), q.data_ptr(), s.data_ptr(),
+                        i.data_ptr())
+    assert args[4:12] == (N, d, m, k, p.mq, int(vec), int(p.lists), p.grid)
+    assert fake.scratch_keys == [p.scratch]
+    # the plan: query groups of up to 4 (4 for unaligned rows), one batch
+    # of 4 rows a warp up to one block an SM, lists up to k = 32
+    assert p.mq == (min(1 << (m - 1).bit_length(), 4) if vec else 4)
+    assert p.groups == -(-m // p.mq)
+    assert p.grid == min(-(-N // (ops.ROWS * ops.WARPS)), 132)
+    assert p.lists == (k <= 32)
+    assert p.scratch == (p.grid * 32 if p.lists else 1 << (N - 1).bit_length())
+    # host=True: both into one buffer, the k indices then the k scores
+    hs, hi = ops.launch_topk(tools, q, k, host=True)
+    assert len(fake.calls) == 2 and hs.shape == hi.shape == (k,)
+    assert (hs.dtype, hi.dtype) == (torch.float32, torch.int64)
+    assert fake.calls[1][2] == fake.calls[1][3] + 8 * k == hs.data_ptr()
+    for bad in (0, N + 1):
+        with pytest.raises(ValueError):
+            ops.launch_topk(tools, q, bad)
+    assert len(fake.calls) == 2
 
 
 def test_tokenizer_idf_and_lexical_scores_exact():
@@ -218,3 +319,22 @@ def test_selector_matches_reference_on_query_stream(encoder):
         assert np.max(np.abs(np.subtract(got.scores, want.scores)),
                       initial=0.0) <= SCORE_TOL
     assert n_chain > 20                      # multi-sentence queries covered
+
+
+def test_retrieve_matches_reference(encoder):
+    """`retrieve` (top k with one copy to the host) returns the reference's
+    lists: indices identical, scores within SCORE_TOL, as Python lists."""
+    ref_sel = RefToolSelector(ref_build_catalog(240, seed=0))
+    sel = ToolSelector(build_catalog(240, seed=0),
+                       encoder_params=params_from_numpy(encoder[1], "cpu"),
+                       device="cpu")
+    n_multi = 0
+    for pq in FunctionCallWorkload(sel.catalog, seed=7).stream(40):
+        want_i, want_s = ref_sel.retrieve(pq.text)
+        got_i, got_s = sel.retrieve(pq.text)
+        assert isinstance(got_i, list) and isinstance(got_s, list)
+        assert [int(t) for t in got_i] == [int(t) for t in want_i], pq.text
+        assert np.max(np.abs(np.subtract(got_s, want_s)), initial=0.0) \
+            <= SCORE_TOL
+        n_multi += len(pq.sentences) > 1
+    assert n_multi > 0                       # k grows with the sentences
