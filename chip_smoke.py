@@ -55,6 +55,38 @@ Phases, each raising on its first fault (the script then exits non-zero):
                record must have tps > 0 and both variants must appear.
                Seconds, joules and carbon of the records come from the
                virtual clock and the Orin power model, not from the card.
+  7. serve_spec_chunk — chunked prefill and speculative decoding at full
+               width on carboncall-qwen2-7b (random weights from seed 0,
+               quantized on the card), four main paths, each with its
+               launch counters set to 0 just before it and read just after,
+               and no step falling back:
+               chunked — max_batch 4, max_seq 2048, buckets up to 1024,
+               `prefill_chunk=256`: two 40-token requests decode while a
+               700- and a 900-token request admit in windows, then one
+               sharing the 900-token prompt's first 512 tokens hits the
+               prefix cache; a Q8 -> Q4 swap once it has 8 tokens. The kinds
+               must alternate (no prefill-kind step after a prefill-kind
+               step while requests are resident), the four model kernels
+               must launch, and the Q8 tokens must equal an unchunked
+               engine's up to each stream's first top-2 margin below
+               MARGIN_BOUND;
+               spec bf16 / int8 KV — max_batch 4, max_seq 256, Q8 drafting
+               with Q4 at k 2, k 4 from step SPEC_K4_AT, a swap to Q4 at
+               SPEC_SWAP_AT after which no step may draft; 8 requests of 32
+               tokens, half sharing a 32-token prefix. spec_steps, draft and
+               accepted tokens, q8/q4/paged launches, the Q8 tokens against
+               plain Q8 by the same rule;
+               runtime spec+chunk — `run_week` over 4 ten-minute steps (100,
+               then 900 gCO2/kWh) with `EngineConfig(max_batch=2,
+               prefill_chunk=64, spec_decode=SpecDecodeConfig("q4", k=2,
+               k_ladder=(1, 2, 4)))`: two draft lengths or more, spec and
+               chunk steps, sim_scores once per retrieval.
+               Times (CUDA events over whole steps, the card's name and
+               limit from phase 1): the residents' longest gap between two
+               tokens chunked against monolithic, a window step and one
+               256-token window of the model alone (with its kernels' busy
+               time), and tokens a second at batch 4 for plain Q8 against
+               spec at k 2 and k 4, with the acceptance rate.
 The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
 carboncall-qwen2-7b's five (K, N) for M in QM_ROWS (both regimes and their
 edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
@@ -76,7 +108,7 @@ then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
 bit-identical repeats,
 timed by device time against the faster of two SDPA calls.
 The line before the last is the `kernels` JSON record (launches summed over
-the main paths of phases 4, 5 and 6); the last line is
+the main paths of phases 4, 5, 6 and 7); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -174,6 +206,27 @@ MAMBA_LOGIT_REL = 0.02          # of max |logit| (tests/test_torch_mamba2.py)
 # runtime phase: a clean grid, then a dirty one, 10-minute steps
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
 RUNTIME_QPH = 18.0
+# serve_spec_chunk: chunked windows of 256 over buckets up to 1024; spec at
+# k 2, k 4 from step SPEC_K4_AT, a swap to the draft variant at
+# SPEC_SWAP_AT; the runtime with windows of 64 (below its 128 and 256
+# buckets) and a draft-length ladder, over 4 ten-minute steps
+CHUNK = 256
+CHUNK_BUCKETS = (64, 128, 256, 512, 1024)
+SPEC_K4_AT, SPEC_SWAP_AT = 6, 14
+RUNTIME_CHUNK = 64
+RUNTIME_LADDER = (1, 2, 4)
+RUNTIME_SPEC_CI = (100.0, 100.0, 900.0, 900.0)
+# tokens are compared up to a stream's first emission whose top-2 logit
+# margin is below this (tests/test_torch_engine.py's MARGIN_BOUND: twice
+# the logit tolerance of two code paths on one history)
+MARGIN_BOUND = 0.16
+# teacher-forced logits of two code paths on one history (a chunk window's
+# plain prefix attention and M = 1024 q8 tiles against the flash kernel at
+# M = 4096; a verify window against the paged kernel and the q8 GEMV at
+# M = 4), over the reference row's max |logit|: 0.017-0.019 on the card
+# at full width (PERF.md §6, PR 23), where bf16 rounding differs at every
+# one of 28 layers; 0.008 / 0.013 (int8 KV) at the CPU tests' width
+ENGINE_LOGIT_REL = 0.03
 REPLACES = {
     "q8_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:56",
     "q4_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:108",
@@ -1410,12 +1463,14 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
 # ---------------------------------------------------------------------------
 
 
-def phase_runtime(device="cuda", model_cfg=None):
-    """`run_week` with the carboncall policy over a clean-then-dirty CI ramp,
-    every query selected by `ToolSelector` and served by `EngineExecutor`
-    (full-width carboncall-qwen2-7b unless `model_cfg` says otherwise). The
-    launch counters are set to 0 just before the run and read just after.
-    Returns this path's counts."""
+def run_runtime(label, ci, device="cuda", model_cfg=None, config=None):
+    """`run_week` with the carboncall policy over the CI trace `ci`, every
+    query selected by `ToolSelector` and served by `EngineExecutor` (on
+    full-width carboncall-qwen2-7b unless `model_cfg` says otherwise, sized
+    by `config` when given). The launch counters are set to 0 just before
+    the run and read just after. Checks what every runtime path must hold
+    and returns (records, executor, this path's counts, the draft lengths
+    the executor set)."""
     import numpy as np
     import torch
     from repro_torch import kernels
@@ -1431,21 +1486,23 @@ def phase_runtime(device="cuda", model_cfg=None):
         else get_arch("carboncall-qwen2-7b")
     t0 = time.perf_counter()
     ex = EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX, model_cfg=cfg,
-                        seed=0, device=device)
+                        seed=0, device=device, config=config)
     catalog = build_catalog(240, seed=0)
     sel = ToolSelector(catalog, seed=0, device=device)
     rt = CarbonCallRuntime(selector=sel, executor=ex,
                            policy=POLICIES["carboncall"], modes=ORIN_MODES,
                            catalog_size=len(catalog.tools), seed=0)
     sync()
-    log(f"runtime: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
+    log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
         f"q8+q4 weights and a {tuple(sel.index.shape)} tool index made on "
-        f"{device} in {time.perf_counter() - t0:.1f} s (host clock)")
+        f"{device} in {time.perf_counter() - t0:.1f} s (host clock); "
+        f"engine {ex.config}")
     # count what the path does, beside the kernels' own counters, and the
     # host time of tool selection (it ends in a copy to the host, so the
     # host clock around it includes its device work)
-    retrievals, requests, select_s = [0], [], [0.0]
+    retrievals, requests, select_s, ks = [0], [], [0.0], []
     retrieve, select, submit = sel.retrieve, sel.select, ex.engine.submit
+    set_k = ex.engine.set_draft_k
 
     def counted_retrieve(query):
         retrievals[0] += 1
@@ -1461,13 +1518,16 @@ def phase_runtime(device="cuda", model_cfg=None):
         requests.append(req)
         return submit(req)
 
+    def recorded_k(k):
+        ks.append(k)
+        return set_k(k)
+
     sel.retrieve, sel.select = counted_retrieve, timed_select
-    ex.engine.submit = recorded_submit
-    ci = np.array([RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY)
+    ex.engine.submit, ex.engine.set_draft_k = recorded_submit, recorded_k
     sync()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    res = run_week(rt, FunctionCallWorkload(catalog, seed=3), ci,
+    res = run_week(rt, FunctionCallWorkload(catalog, seed=3), np.asarray(ci),
                    queries_per_hour=RUNTIME_QPH, seed=0)
     sync()
     host_s = time.perf_counter() - t0
@@ -1477,46 +1537,499 @@ def phase_runtime(device="cuda", model_cfg=None):
     modes = {i + 1: sum(r.mode_idx == i for r in recs)
              for i in range(len(ORIN_MODES))}
     mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
-    log(f"  runtime: {len(recs)} queries served in {host_s:.1f} s host clock; "
-        f"mode residency (queries per mode) {modes}; variant mix {mix}; "
-        f"swap_count={ex.swap_count}; {eng.tokens_emitted} tokens decoded; "
-        f"{retrievals[0]} retrievals; {len(requests)} engine requests; "
-        f"kernel_fallbacks={eng.kernel_fallbacks}; launches={launches}")
+    log(f"  {label}: {len(recs)} queries served in {host_s:.1f} s host "
+        f"clock; mode residency (queries per mode) {modes}; variant mix "
+        f"{mix}; swap_count={ex.swap_count}; {eng.tokens_emitted} tokens "
+        f"decoded; {retrievals[0]} retrievals; {len(requests)} engine "
+        f"requests; kernel_fallbacks={eng.kernel_fallbacks}; "
+        f"launches={launches}")
     kinds = [e["kind"] for e in eng.step_log]
-    log(f"  runtime, host clock: tool selection {select_s[0]:.3f} s "
+    log(f"  {label}, host clock: tool selection {select_s[0]:.3f} s "
         f"({1e3 * select_s[0] / max(len(recs), 1):.2f} ms per query), the "
-        f"rest {host_s - select_s[0]:.1f} s over {kinds.count('decode')} "
-        f"decode and {len(kinds) - kinds.count('decode')} prefill steps")
-    log(f"  runtime, virtual clock, Orin power model (not measured on the "
+        f"rest {host_s - select_s[0]:.1f} s over "
+        f"{ {k: kinds.count(k) for k in sorted(set(kinds))} } steps")
+    log(f"  {label}, virtual clock, Orin power model (not measured on the "
         f"card): mean latency {res.avg_latency:.3f} s, mean energy "
         f"{np.mean([r.energy_j for r in recs]):.2f} J, mean carbon "
         f"{1e3 * res.avg_carbon:.4f} mg per query, mean TPS "
         f"{res.avg_tps:.2f}, success {res.success_rate:.3f}")
     if not recs:
-        fail("runtime: no query served")
+        fail(f"{label}: no query served")
     if any(not r.tps > 0 for r in recs):
-        fail("runtime: a record has tps <= 0")
+        fail(f"{label}: a record has tps <= 0")
+    errs = check_invariants(eng, requests)
+    if errs:
+        fail(f"{label}: invariant violations: {errs}")
+    if device == "cuda":
+        if eng.kernel_fallbacks != 0:
+            fail(f"{label}: kernel_fallbacks = {eng.kernel_fallbacks}")
+        if launches["sim_scores"] != retrievals[0] or retrievals[0] <= 0:
+            fail(f"{label}: sim_scores launched {launches['sim_scores']} "
+                 f"times for {retrievals[0]} retrievals")
+    return recs, ex, launches, ks
+
+
+def phase_runtime(device="cuda", model_cfg=None):
+    """The runtime over a clean-then-dirty CI ramp: the governor must reach
+    a low-power mode, the switcher must swap Q8 -> Q4 live, and the four
+    model kernels must launch. Returns this path's counts."""
+    import torch
+    from repro_torch.core import ORIN_MODES
+    ci = [RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY
+    recs, ex, launches, _ = run_runtime("runtime", ci, device, model_cfg)
+    mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
     if mix["q8"] == 0 or mix["q4"] == 0 or ex.swap_count < 1:
         fail(f"runtime: no live Q8 -> Q4 swap (mix {mix}, "
              f"swap_count {ex.swap_count})")
     if max(r.mode_idx for r in recs) < len(ORIN_MODES) - 2:
-        fail(f"runtime: the governor never reached a low-power mode {modes}")
-    errs = check_invariants(eng, requests)
-    if errs:
-        fail(f"runtime: invariant violations: {errs}")
+        fail("runtime: the governor never reached a low-power mode")
     if device == "cuda":
-        if eng.kernel_fallbacks != 0:
-            fail(f"runtime: kernel_fallbacks = {eng.kernel_fallbacks}")
-        if launches["sim_scores"] != retrievals[0] or retrievals[0] <= 0:
-            fail(f"runtime: sim_scores launched {launches['sim_scores']} "
-                 f"times for {retrievals[0]} retrievals")
         idle = [k for k in MODEL_KERNELS if launches[k] <= 0]
         if idle:
             fail(f"runtime: kernels never launched on this path: {idle}")
-    del ex, sel, rt, eng
+    del ex
     if device == "cuda":
         torch.cuda.empty_cache()
     return launches
+
+
+# ---------------------------------------------------------------------------
+# 7. chunked prefill and speculative decoding
+# ---------------------------------------------------------------------------
+
+
+class _StepClock:
+    """Per-step times of an engine by CUDA events (the host clock on the
+    CPU), the emitting rids of each step, and the top-2 logit margin of
+    every emission sampled through `_sample` (the margin rule's input).
+    With `keep_rows` it keeps each emission's logits row (f32, on the
+    device). With `ref` (another run's rows and tokens by rid) every
+    emission, and every verify argmax, takes that run's token, so both
+    follow one history, and each row emitted while the engine is on Q8
+    and `ref` was too (`ref_q8[rid]` emissions) is compared with `ref`'s:
+    `worst` is the largest |difference| over the reference row's max
+    |logit|."""
+
+    def __init__(self, eng, device, keep_rows=False, ref=None, ref_q8=None):
+        import torch
+        self.eng, self.device = eng, device
+        self.ms, self.kinds, self.emitted, self.margins = [], [], [], {}
+        self.rows, self.worst, self.compared = {}, 0.0, 0
+        sample, emit, greedy = eng._sample, eng._emit, eng._greedy
+        spec_step, last = eng._spec_step, {}
+
+        def rec_sample(logits, req):
+            lg = torch.as_tensor(logits).float()
+            top = torch.topk(lg, 2, dim=-1).values
+            last["lg"], last["m"] = lg, (top[:, 0] - top[:, 1]).cpu().numpy()
+            return sample(logits, req)
+
+        def rec_greedy(logits):
+            out = greedy(logits)
+            if logits.ndim == 3:             # the verify window
+                last["verify"] = logits.float()
+                for i, r in enumerate(eng.slots):
+                    if r is None or ref is None:
+                        continue
+                    want = ref[1][r.rid]
+                    for j in range(out.shape[1]):
+                        if len(r.output) + j < len(want):
+                            out[i, j] = want[len(r.output) + j]
+            return out
+
+        def rec_emit(req, slot, tok):
+            n = len(req.output)
+            if "j" in last:                  # inside a spec step
+                j = last["j"].get(slot, 0)
+                last["j"][slot] = j + 1
+                row = last["verify"][slot, j]
+            else:
+                lg = last["lg"]
+                row = lg[0 if len(lg) == 1 else slot]
+                m = last["m"]
+                self.margins.setdefault(req.rid, []).append(
+                    float(m[0 if len(m) == 1 else slot]))
+            if keep_rows:
+                self.rows.setdefault(req.rid, []).append(row)
+            if ref is not None:
+                if eng.variant_name == "q8" and n < ref_q8[req.rid]:
+                    want = ref[0][req.rid][n]
+                    err = float((row - want).abs().max()
+                                / want.abs().max().clamp_min(1e-30))
+                    self.worst = max(self.worst, err)
+                    self.compared += 1
+                tok = ref[1][req.rid][n]
+            emit(req, slot, tok)
+
+        def rec_spec_step(completed):
+            last["j"] = {}
+            try:
+                return spec_step(completed)
+            finally:
+                del last["j"]
+
+        eng._sample, eng._emit, eng._greedy = rec_sample, rec_emit, rec_greedy
+        eng._spec_step = rec_spec_step
+
+    def step(self):
+        import torch
+        eng = self.eng
+        if self.device == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            eng.step()
+            end.record()
+            end.synchronize()
+            self.ms.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            eng.step()
+            self.ms.append(1e3 * (time.perf_counter() - t0))
+        rec = eng.step_log[-1]
+        self.kinds.append(rec["kind"])
+        self.emitted.append([r for r in rec["rids"]
+                             if rec["kind"] != "prefill" or rec["tokens"]]
+                            if rec["kind"] != "prefill_chunk" else [])
+
+
+def _forced_logits(label, clock):
+    """Fail unless the teacher-forced run compared rows and every one was
+    within ENGINE_LOGIT_REL of the reference run's."""
+    log(f"  {label}, teacher-forced: {clock.compared} emissions compared, "
+        f"worst |logit diff| {clock.worst:.5f} of the row's max |logit| "
+        f"(limit {ENGINE_LOGIT_REL})")
+    if clock.compared <= 0 or clock.worst > ENGINE_LOGIT_REL:
+        fail(f"{label}: teacher-forced logits {clock.worst:.5f} over "
+             f"{clock.compared} emissions")
+
+
+def _margin_rule(label, got, want, margins, upto):
+    """Tokens of `got` equal `want`'s (same rids, same prompts) among each
+    rid's first `upto[rid]` emissions, up to the first emission whose top-2
+    margin in the `want` run is below MARGIN_BOUND. Returns the count
+    compared."""
+    compared = total = 0
+    for g, w in zip(got, want):
+        n = upto[g.rid]
+        total += n
+        for a, b, m in zip(g.output[:n], w.output[:n],
+                           margins.get(w.rid, [])):
+            if m < MARGIN_BOUND:
+                break
+            if a != b:
+                fail(f"{label}: rid {g.rid} emitted {a} where the plain run "
+                     f"emitted {b} at a top-2 margin of {m:.4f}")
+            compared += 1
+    log(f"  {label}: tokens equal to the plain run's, {compared} of {total} "
+        f"compared (up to each stream's first margin below {MARGIN_BOUND})")
+    return compared
+
+
+def _gaps_ms(clock, rids):
+    """Longest time between two emissions of any of `rids`: the summed step
+    times from one emitting step to the next."""
+    worst = 0.0
+    for rid in rids:
+        steps = [i for i, e in enumerate(clock.emitted) if rid in e]
+        for a, b in zip(steps, steps[1:]):
+            worst = max(worst, sum(clock.ms[a + 1:b + 1]))
+    return worst
+
+
+def _serve_chunked(cfg, variants, chunk, device, **clock_kw):
+    """Two 40-token requests admit and decode; a 700- and a 900-token
+    request arrive once they decode; a fifth, sharing the 900-token prompt's
+    first 512 tokens at its length, arrives once that one runs (a prefix
+    hit); once the fifth has emitted 8 tokens the engine swaps Q8 -> Q4.
+    `clock_kw` goes to the step clock. Returns (engine, requests, step
+    clock, tokens emitted before the swap per rid)."""
+    import numpy as np
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.serving import EngineClient, ServingEngine, SessionRequest
+    from repro_torch.serving.scheduler import RUNNING
+    rng = np.random.default_rng(7)
+
+    def toks(n):
+        return [int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
+
+    shorts, p700, p900 = [toks(40), toks(40)], toks(700), toks(900)
+    shared = p900[:512] + toks(388)
+    eng = ServingEngine(cfg, variants["q8"], RuntimeConfig(),
+                        max_batch=4, max_seq=2048, block_size=16,
+                        prompt_buckets=CHUNK_BUCKETS, kv_layout="paged",
+                        prefill_chunk=chunk, device=device, seed=0)
+    eng.variant_name = "q8"
+    client = EngineClient(eng)
+    clock = _StepClock(eng, device, **clock_kw)
+
+    def submit(p):
+        return client.submit(SessionRequest(prompt=p, max_new_tokens=32,
+                                            eos_id=-1))
+
+    hs = [submit(p) for p in shorts]
+    pre_swap = None
+    while eng.has_work():
+        clock.step()
+        if len(hs) == 2 and len(clock.ms) == 2:
+            hs += [submit(p700), submit(p900)]
+        if len(hs) == 4 and hs[3].request.status == RUNNING:
+            hs.append(submit(shared))
+        if pre_swap is None and len(hs) == 5 \
+                and len(hs[4].request.output) >= 8:
+            pre_swap = {h.rid: len(h.request.output) for h in hs}
+            eng.swap_params(variants["q4"], "q4")
+        if len(clock.ms) > 2000:
+            fail("serve_spec_chunk: chunked engine did not drain")
+    if pre_swap is None:
+        fail("serve_spec_chunk: the chunked run never swapped to Q4")
+    return eng, [h.request for h in hs], clock, pre_swap
+
+
+def _serve_spec(cfg, variants, kv, k, prompts, device, *, draft_k_at=None,
+                swap_at=None, profile_at=None, **clock_kw):
+    """Temperature-0 requests of 32 new tokens on a Q8 engine drafting with
+    Q4 (`k` None: plain Q8); `set_draft_k(4)` after `draft_k_at` steps and a
+    swap to Q4 after `swap_at` steps when given; step `profile_at` under
+    the profiler. `clock_kw` goes to the step clock. Returns (engine,
+    requests, step clock, tokens emitted before the swap per rid)."""
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.serving import (EngineClient, ServingEngine,
+                                     SessionRequest, SpecDecodeConfig)
+    eng = ServingEngine(cfg, variants["q8"],
+                        RuntimeConfig(kv_cache_dtype=kv), max_batch=4,
+                        max_seq=256, block_size=16, kv_layout="paged",
+                        spec_decode=(None if k is None
+                                     else SpecDecodeConfig("q4", k=k)),
+                        device=device, seed=0)
+    eng.variant_name = "q8"
+    if k is not None:
+        eng.set_draft_params(variants["q4"], "q4")
+    client = EngineClient(eng)
+    clock = _StepClock(eng, device, **clock_kw)
+    hs = [client.submit(SessionRequest(prompt=p, max_new_tokens=32,
+                                       eos_id=-1)) for p in prompts]
+    pre_swap = None
+    while eng.has_work():
+        n = len(clock.ms)
+        if draft_k_at is not None and n == draft_k_at:
+            eng.set_draft_k(4)
+        if swap_at is not None and n == swap_at:
+            pre_swap = {h.rid: len(h.request.output) for h in hs}
+            eng.swap_params(variants["q4"], "q4")
+        if n == profile_at and device == "cuda":
+            profile_window(clock.step, f"step {n}, "
+                           f"{'plain' if k is None else f'spec k {k}'}", n=1)
+        else:
+            clock.step()
+        if n > 2000:
+            fail("serve_spec_chunk: spec engine did not drain")
+    return eng, [h.request for h in hs], clock, pre_swap
+
+
+def _check_engine(label, eng, reqs, max_new, device):
+    from repro_torch.serving import check_invariants
+    from repro_torch.serving.scheduler import DONE
+    bad = [r.rid for r in reqs if r.status != DONE
+           or len(r.output) != max_new]
+    if bad:
+        fail(f"{label}: requests not DONE with {max_new} tokens: {bad}")
+    if device == "cuda" and eng.kernel_fallbacks != 0:
+        fail(f"{label}: kernel_fallbacks = {eng.kernel_fallbacks}")
+    st = eng.stats()
+    errs = check_invariants(eng, reqs)
+    if errs:
+        fail(f"{label}: invariant violations: {errs}")
+    return st
+
+
+def _path_launches(label, launches, expect, device):
+    if device == "cuda":
+        idle = [k for k in expect if launches[k] <= 0]
+        if idle:
+            fail(f"{label}: kernels never launched on this path: {idle}")
+    log(f"  {label}: launches={launches}")
+    return launches
+
+
+def chunk_window_ms(cfg, params, device, W=256, start=768, P=1024):
+    """One middle chunk window as the engine runs it: W tokens after a
+    `start`-token prefix gathered into P positions, the engine's max_batch
+    of 4 rows (one real), no logits. CUDA events, and the kernels' busy
+    time by the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.models import get_model
+    model = get_model(cfg)
+    g = torch.Generator(device=device).manual_seed(5)
+    L, K, H = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    k_pre = torch.randn((L, 4, P, K, H), generator=g, device=device,
+                        dtype=torch.float32).to(torch.bfloat16)
+    v_pre = torch.randn_like(k_pre)
+    batch = {"tokens": torch.randint(2, cfg.vocab_size, (4, W), generator=g,
+                                     device=device, dtype=torch.int32),
+             "positions": torch.arange(start, start + W, dtype=torch.int32,
+                                       device=device)}
+    plens = torch.tensor([start, 0, 0, 0], dtype=torch.int32, device=device)
+    rcfg = RuntimeConfig()
+    win = lambda: model.prefill_chunk(params, batch, k_pre, v_pre,  # noqa: E731
+                                      plens, rcfg, need_logits=False)
+    if device != "cuda":
+        win()
+        return None
+    ms = time_ms(win, iters=3, warmup=1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        win()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    log(f"  chunk window q8 {W} tokens after {start} (P {P}, 4 rows): "
+        f"{ms:.2f} ms (CUDA events), kernels busy {busy:.2f} ms")
+    return ms
+
+
+def phase_serve_spec_chunk(device="cuda", model_cfg=None):
+    """Chunked prefill and speculative decoding on the paged engine, at full
+    width (carboncall-qwen2-7b unless `model_cfg` says otherwise), then the
+    runtime over an executor that uses both. Four main paths, each with its
+    launch counters set to 0 just before it and read just after: the
+    chunked engine, the spec engine on bf16 and on int8 KV, the runtime.
+    Returns the paths' counts summed."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.quant.qtensor import init_quantized
+    from repro_torch.serving import EngineConfig, SpecDecodeConfig
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = model_cfg if model_cfg is not None \
+        else get_arch("carboncall-qwen2-7b")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(0)
+    variants = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
+                              device)
+    sync()
+    log(f"serve_spec_chunk: {cfg.name} ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}) q8+q4 weights made on {device} in "
+        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    per_path = []
+
+    # -- chunked prefill ----------------------------------------------------
+    mono, mono_reqs, mono_clock, mono_pre = _serve_chunked(
+        cfg, variants, None, device, keep_rows=True)
+    _check_engine("monolithic", mono, mono_reqs, 32, device)
+    ref = (mono_clock.rows, {r.rid: r.output for r in mono_reqs})
+    kernels.reset_launch_counts()
+    eng, reqs, clock, pre = _serve_chunked(cfg, variants, CHUNK, device)
+    per_path.append(_path_launches("chunked", kernels.launch_counts(),
+                                   MODEL_KERNELS, device))
+    st = _check_engine("chunked", eng, reqs, 32, device)
+    log(f"  chunked: prefill_chunk {eng.prefill_chunk}, "
+        f"chunk_steps={st.chunk_steps}, prefix hits "
+        f"{st.prefix_cache.get('hits', 0)}, steps {len(clock.kinds)}")
+    if st.chunk_steps <= 0 or st.prefix_cache.get("prefill_tokens_saved",
+                                                  0) <= 0:
+        fail("chunked: no chunk window or no prefix hit")
+    log_rows = eng.step_log
+    for a, b in zip(log_rows, log_rows[1:]):
+        if a["kind"] in ("prefill", "prefill_chunk") and b["resident_rids"] \
+                and b["kind"] != "decode":
+            fail(f"chunked: {a['kind']} followed by {b['kind']} while "
+                 f"{b['resident_rids']} were resident")
+    _margin_rule("chunked vs monolithic (Q8 tokens)", reqs, mono_reqs,
+                 mono_clock.margins,
+                 {rid: min(n, mono_pre[rid]) for rid, n in pre.items()})
+    _, forced_reqs, forced, _ = _serve_chunked(
+        cfg, variants, CHUNK, device, ref=ref, ref_q8=mono_pre)
+    _forced_logits("chunked vs monolithic", forced)
+    residents = [reqs[0].rid, reqs[1].rid]
+    win = [m for m, k in zip(clock.ms, clock.kinds) if k == "prefill_chunk"]
+    log(f"  chunked vs monolithic: the residents' longest gap between two "
+        f"tokens {_gaps_ms(clock, residents):.1f} ms chunked, "
+        f"{_gaps_ms(mono_clock, residents):.1f} ms monolithic (CUDA events "
+        f"over whole steps); a {CHUNK}-token window step "
+        f"{np.median(win):.1f} ms median of {len(win)}; monolithic "
+        f"admission steps "
+        f"{[round(m, 1) for m, k in zip(mono_clock.ms, mono_clock.kinds) if k == 'prefill']} ms")
+    chunk_window_ms(cfg, variants["q8"], device)
+    del eng, mono, mono_clock, ref
+
+    # -- speculative decoding ----------------------------------------------
+    prompts = _requests(0, cfg.vocab_size)
+    for kv in ("bf16", "int8"):
+        label = f"spec {kv}-KV"
+        plain, plain_reqs, plain_clock, _ = _serve_spec(
+            cfg, variants, kv, None, prompts, device, keep_rows=True)
+        ref = (plain_clock.rows, {r.rid: r.output for r in plain_reqs})
+        kernels.reset_launch_counts()
+        eng, reqs, clock, pre = _serve_spec(cfg, variants, kv, 2, prompts,
+                                            device, draft_k_at=SPEC_K4_AT,
+                                            swap_at=SPEC_SWAP_AT)
+        per_path.append(_path_launches(
+            label, kernels.launch_counts(),
+            ("q8_matmul", "q4_matmul", "paged_attention"), device))
+        st = _check_engine(label, eng, reqs, 32, device)
+        kinds = [r["kind"] for r in eng.step_log]
+        after = [r for r in eng.step_log[SPEC_SWAP_AT:]]
+        ks = sorted({r["drafted"] // len(r["rids"]) for r in eng.step_log
+                     if r["kind"] == "spec_verify"})
+        log(f"  {label}: spec_steps={st.spec_steps}, draft_tokens="
+            f"{st.draft_tokens}, accepted={st.accepted_tokens} (rate "
+            f"{st.accept_rate:.3f}), draft lengths {ks}, steps "
+            f"{ {k: kinds.count(k) for k in sorted(set(kinds))} }")
+        if st.spec_steps <= 0 or st.draft_tokens <= 0 \
+                or st.accepted_tokens > st.draft_tokens or ks != [2, 4]:
+            fail(f"{label}: spec counters or draft lengths wrong")
+        if pre is None or any(r["kind"] == "spec_verify" for r in after):
+            fail(f"{label}: spec did not stand down after the swap to Q4")
+        _margin_rule(f"{label} vs plain Q8 (Q8 tokens)", reqs, plain_reqs,
+                     plain_clock.margins, pre)
+        forced = _serve_spec(cfg, variants, kv, 2, prompts, device,
+                             draft_k_at=SPEC_K4_AT, swap_at=SPEC_SWAP_AT,
+                             ref=ref, ref_q8={r.rid: 32 for r in reqs})[2]
+        _forced_logits(f"{label} vs plain Q8", forced)
+        del eng, plain, plain_clock, ref
+
+    # -- times: plain Q8 against spec at k 2 and k 4, batch 4 --------------
+    for k in (None, 2, 4):
+        eng, reqs, clock, _ = _serve_spec(cfg, variants, "bf16", k,
+                                          prompts[:4], device, profile_at=6)
+        steps = [(m, r) for m, r in zip(clock.ms, eng.step_log)
+                 if r["kind"] in ("decode", "spec_verify")]
+        tokens = sum(r["tokens"] for _, r in steps)
+        ms = sum(m for m, _ in steps)
+        st = eng.stats()
+        log(f"  spec times {'plain q8' if k is None else f'k {k}'}: "
+            f"{tokens} tokens in {len(steps)} steps, {ms:.1f} ms (CUDA "
+            f"events) -> {1e3 * tokens / ms:.1f} tokens/s at batch 4, "
+            f"{ms / len(steps):.1f} ms a step, acceptance "
+            f"{st.accept_rate:.3f}")
+        del eng
+    del variants
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # -- the runtime over a chunked, speculative executor -------------------
+    config = EngineConfig(max_batch=2, prefill_chunk=RUNTIME_CHUNK,
+                          spec_decode=SpecDecodeConfig(
+                              "q4", k=2, k_ladder=RUNTIME_LADDER))
+    recs, ex, launches, ks = run_runtime(
+        "runtime spec+chunk", RUNTIME_SPEC_CI, device, model_cfg, config)
+    per_path.append(_path_launches(
+        "runtime spec+chunk", launches,
+        ("q8_matmul", "q4_matmul", "paged_attention", "sim_scores"), device))
+    st = ex.engine.stats()
+    log(f"  runtime spec+chunk: draft lengths set {ks}, spec_steps="
+        f"{st.spec_steps}, chunk_steps={st.chunk_steps}, accept rate "
+        f"{st.accept_rate:.3f}")
+    if len(set(ks)) < 2 or st.spec_steps <= 0 or st.chunk_steps <= 0:
+        fail("runtime spec+chunk: fewer than two draft lengths, or no spec "
+             "or chunk step")
+    del ex
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
 
 
 def main():
@@ -1552,10 +2065,11 @@ def main():
     serve_launches, _ = phase_serve()
     mamba_launches = phase_serve_mamba2()
     runtime_launches = phase_runtime()
+    spec_chunk_launches = phase_serve_spec_chunk()
     launches = {k: serve_launches[k] + mamba_launches[k] + runtime_launches[k]
-                for k in kernels.KERNELS}
-    log(f"main-path launches, serve, serve_mamba2 and runtime summed: "
-        f"{launches}")
+                + spec_chunk_launches[k] for k in kernels.KERNELS}
+    log(f"main-path launches, serve, serve_mamba2, runtime and "
+        f"serve_spec_chunk summed: {launches}")
     log(json.dumps({"kernels": [records[k].to_json(launches[k])
                                 for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

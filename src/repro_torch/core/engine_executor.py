@@ -30,10 +30,17 @@ The model is the reduced config of `arch` unless `model_cfg` is given (the
 full-width `get_arch(arch)` runs the same loop at full size on the card).
 Weights are random from `seed`, drawn straight into the Q8/Q4 trees leaf by
 leaf (`quant.init_quantized`), so no full-precision tree is ever whole.
-Speculative decoding, chunked prefill, the dense layout, the data-parallel
-mesh and models other than the transformer family are not ported yet here:
-the executor refuses such a config with a `NotImplementedError` naming the
-ROADMAP item before it makes any weights.
+`prefill_chunk` admits long tool prompts in windows between decode steps,
+and `EngineConfig.spec_decode` drafts with its `draft_variant` tree (Q4) and
+verifies with the resident one; with a `k_ladder`, each query's governor
+mode sets the draft length (`CarbonGovernor.k_for_mode`: the dirtier the
+grid, the lower the power mode and the longer the drafts). Draft rounds are
+priced at the draft variant's decode cost, a verify window as a prefill of
+its tokens. The dense layout, the data-parallel mesh and models other than
+the transformer family are not ported yet here: the executor refuses such a
+config with a `NotImplementedError` naming the ROADMAP item, and the
+invalid values the JAX package refuses with its `ValueError`, before it
+makes any weights.
 """
 from __future__ import annotations
 
@@ -51,12 +58,13 @@ from repro_torch.configs.reduced import reduce_config
 from repro_torch.core.executor import (
     EVAL_PROMPT, QUERY_TOKENS, QueryExecution, QuerySession, SELECT_S,
     TOKENS_PER_TOOL, TOOL_EXEC_S, ModelProfile, success_probability)
+from repro_torch.core.governor import CarbonGovernor
 from repro_torch.core.power import OperatingMode, PowerModel, modes_for
 from repro_torch.models import get_model
 from repro_torch.quant.qtensor import init_quantized
 from repro_torch.serving import (EngineConfig, RequestHandle, ServingEngine,
                                  SessionRequest, VirtualClock)
-from repro_torch.serving.engine import refuse_unported
+from repro_torch.serving.engine import refuse_unported, resolve_layout
 
 
 @dataclasses.dataclass
@@ -94,6 +102,7 @@ class EngineExecutor:
                  kv_layout: Optional[str] = None,
                  kv_cache_dtype: Optional[str] = None,
                  num_blocks: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
                  clock: Optional[VirtualClock] = None,
                  model_cfg: Optional[ModelConfig] = None, device="cuda"):
         # engine sizing flows through ONE serializable EngineConfig — the
@@ -105,18 +114,21 @@ class EngineExecutor:
                                   ("max_seq", max_seq),
                                   ("kv_layout", kv_layout),
                                   ("kv_cache_dtype", kv_cache_dtype),
-                                  ("num_blocks", num_blocks))
+                                  ("num_blocks", num_blocks),
+                                  ("prefill_chunk", prefill_chunk))
                 if v is not None}
         config = base.replace(**over) if over else base
         cfg = model_cfg if model_cfg is not None \
             else reduce_config(get_arch(arch))
-        # refuse what the port does not serve before any weights are made
+        # refuse what the port does not serve, and what the engine would
+        # refuse, before any weights are made
         refuse_unported(config)
-        if config.kv_layout == "dense":
-            raise NotImplementedError(
-                "kv_layout='dense': the runtime serves the transformer "
-                "family, whose dense decode is not ported yet (ROADMAP "
-                "Queue 1 item 4.3)")
+        resolve_layout(cfg, config)
+        sd = config.spec_decode
+        if sd is not None and sd.draft_variant not in config.variants:
+            raise ValueError(
+                f"spec_decode.draft_variant {sd.draft_variant!r} is not "
+                f"in variants {tuple(config.variants)}")
         if cfg.family != "transformer":
             raise NotImplementedError(
                 f"{cfg.name}: the CarbonCall runtime over family "
@@ -144,6 +156,12 @@ class EngineExecutor:
                                     device=device)
         self.engine.variant_name = boot
         self.config = self.engine.config
+        self._modes = modes_for(hw)
+        if sd is not None:
+            # the verify variant is whatever is resident, so the ladder stays
+            # coherent across hot swaps (draft == resident stands spec down)
+            self.engine.set_draft_params(self.variants[sd.draft_variant],
+                                         sd.draft_variant)
         self.client = self.engine.client()
         # int8 KV halves the per-token cache bytes a decode step streams
         # (the fp32 scale stripes amortize over the head dim — the factor
@@ -170,9 +188,20 @@ class EngineExecutor:
         """Roofline duration of one engine step at profile scale: prefill is
         compute-bound on the prompt tokens; batched decode streams the weights
         once per step plus one KV read per active slot (this is what makes
-        batched TPS scale with occupancy under the virtual clock)."""
+        batched TPS scale with occupancy under the virtual clock). A spec
+        step is its draft rounds at the draft variant's weight bytes plus
+        one verify forward priced as a prefill of the window tokens."""
         pm, prof, mode = self.power_model, self.profile, self._mode
-        if kind != "decode":
+        if kind == "spec_draft":
+            # `tokens` is the drafted total (k * rows): k batched rounds
+            rounds = max(1, -(-tokens // max(active, 1)))
+            return rounds * pm.decode_time_per_token(
+                prof.active_bytes(self.engine.draft_variant),
+                prof.kv_bytes_per_token * self._kv_byte_frac * max(active, 1),
+                mode)
+        if kind == "spec_verify":
+            return pm.prefill_time(max(tokens, 1), prof.n_active * 2, mode)
+        if kind != "decode":     # "prefill" or a chunked "prefill_chunk"
             if tokens <= 0:
                 return 0.0       # full prefix-cache hit: prefill was skipped
             return pm.prefill_time(tokens, prof.n_active * 2, mode)
@@ -210,6 +239,16 @@ class EngineExecutor:
         if variant != self.engine.variant_name:
             # live hot-swap: the switcher's decision lands on the engine
             self.engine.swap_params(self.variants[variant], variant)
+        sd = self.config.spec_decode
+        if sd is not None and sd.k_ladder:
+            # carbon-modulated draft length: the mode's place on the ladder
+            try:
+                idx = self._modes.index(mode)
+            except ValueError:
+                idx = 0
+            self.engine.set_draft_k(
+                CarbonGovernor.k_for_mode(idx, len(self._modes),
+                                          sd.k_ladder))
         return EngineSession(
             n_tools=n_tools_in_prompt, n_calls=n_calls,
             p_success=success_probability(selection_correct, variant),
@@ -279,7 +318,8 @@ class EngineExecutor:
             rids = entry.get("rids") or []
             owners = [self._rid_sessions[r] for r in rids
                       if r in self._rid_sessions]
-            decode_like = entry["kind"] == "decode"
+            # a spec_verify step is a decode step here: every owner emitted
+            decode_like = entry["kind"] in ("decode", "spec_verify")
             stalled = []
             if not decode_like:
                 stalled = [self._rid_sessions[r]

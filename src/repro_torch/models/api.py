@@ -66,6 +66,21 @@ class Model:
         return self.mod.prefill_paged(params, batch, prefix_k, prefix_v,
                                       prefix_lens, self.cfg, rcfg)
 
+    def prefill_chunk(self, params, batch, prefix_k, prefix_v, prefix_lens,
+                      rcfg: RuntimeConfig, *, need_logits: bool):
+        """One chunked-prefill window over the already-prefilled prefix.
+        -> (logits (B,V) or None, window (k,v) (L,B,S_win,K,H))."""
+        return self.mod.prefill_chunk(params, batch, prefix_k, prefix_v,
+                                      prefix_lens, self.cfg, rcfg,
+                                      need_logits=need_logits)
+
+    def verify_paged(self, params, batch, prefix_k, prefix_v, prefix_lens,
+                     rcfg: RuntimeConfig):
+        """Speculative verify over per-row k+1 windows, positions (B, W).
+        -> (logits (B,W,V), window (k,v) (L,B,W,K,H))."""
+        return self.mod.verify_paged(params, batch, prefix_k, prefix_v,
+                                     prefix_lens, self.cfg, rcfg)
+
     def decode_step_paged(self, params, pool, tokens, lengths, block_tables,
                           rcfg: RuntimeConfig, *, seq_cap: int):
         """-> (logits (B,V), pool updated in place)."""

@@ -6,17 +6,19 @@ trees cross packages leaf for leaf) and run by a Python loop over that dim.
 Entry points:
   * `forward` / `prefill` — cold prefill of full prompt rows; attention goes
     through `layers.attention` (the flash kernel on the card);
-  * `_prefill_window` / `prefill_paged` — a token window over a cached prefix
-    gathered from the block pool (`layers.prefix_attention`, plain);
+  * `_prefill_window` — a token window over a cached prefix gathered from
+    the block pool (`layers.prefix_attention`, plain), behind three entries:
+    `prefill_paged` (a prefix-cache hit), `prefill_chunk` (one window of a
+    chunked prefill) and `verify_paged` (the k+1 speculative verify window,
+    per-row positions, logits at every position);
   * `decode_step_paged` — one token per row against the paged pool (the
     paged-attention kernel on the card);
   * `paged_cache_spec` / `paged_block_bytes` / `quantize_kv_for_cache` —
     pool layout, capacity math and the int8 KV encoding.
 Every linear layer goes through `quant.dense` (the q8/q4 kernels on the card).
 `embed_tokens` and `unembed` (with the tied-embedding head, h @ embed.T in
-f32) also serve the mamba2 LM. Chunked prefill, speculative verify and the
-transformer's dense cache layout are not ported yet (ROADMAP Queue 1 items
-4.1-4.3).
+f32) also serve the mamba2 LM. The transformer's dense cache layout is not
+ported yet (ROADMAP Queue 1 item 4.3).
 """
 from __future__ import annotations
 
@@ -243,6 +245,29 @@ def prefill_paged(params, batch, prefix_k, prefix_v, prefix_lens,
     (last-position logits (B, V), suffix (k, v) each (L, B, S_suf, K, H))."""
     return _prefill_window(params, batch, prefix_k, prefix_v, prefix_lens,
                            cfg, rcfg, need_logits=True)
+
+
+def prefill_chunk(params, batch, prefix_k, prefix_v, prefix_lens,
+                  cfg: ModelConfig, rcfg: RuntimeConfig, *,
+                  need_logits: bool):
+    """One window of a chunked prefill: the window extends a prompt whose
+    first prefix_lens[b] positions already sit in the block pool (the parked
+    chain of earlier windows), at its exact absolute positions. Middle
+    windows pass `need_logits=False` and get (None, (k, v)): only the final
+    window pays for the unembed."""
+    return _prefill_window(params, batch, prefix_k, prefix_v, prefix_lens,
+                           cfg, rcfg, need_logits=need_logits)
+
+
+def verify_paged(params, batch, prefix_k, prefix_v, prefix_lens,
+                 cfg: ModelConfig, rcfg: RuntimeConfig):
+    """Speculative-decode verify: one batched forward over each row's k+1
+    candidate window (the last emitted token and k drafts) after its
+    canonical prefix. batch["positions"] is (B, W): row b continues from its
+    own length. Returns (logits (B, W, V) at every window position, window
+    (k, v) each (L, B, W, K, H))."""
+    return _prefill_window(params, batch, prefix_k, prefix_v, prefix_lens,
+                           cfg, rcfg, need_logits=True, all_logits=True)
 
 
 def decode_step_paged(params, pool, tokens, lengths, block_tables,

@@ -16,24 +16,42 @@ another weight tree between steps (the CarbonCall Q8 <-> Q4 hot swap);
 prefix-cache entries are salted by variant.
 
 The paged device path: cold admissions run `transformer.prefill` (flash
-attention kernel), cache hits `prefill_paged` (plain `prefix_attention`),
-each decode step `decode_step_paged` (paged attention kernel), and every
-linear layer the q8/q4 kernels. A CPU engine runs the kernels' plain
-versions, and each of its paged decode steps counts into `kernel_fallbacks`,
-as in the JAX package. The pool is updated in place.
+attention kernel), cache hits, chunk windows and speculative verify windows
+`_prefill_window` (plain `prefix_attention`), each decode step and each draft
+round `decode_step_paged` (paged attention kernel), and every linear layer
+the q8/q4 kernels. A CPU engine runs the kernels' plain versions, and each
+of its paged decode or speculative steps counts into `kernel_fallbacks`, as
+in the JAX package. The pool is updated in place.
+
+Chunked prefill (`prefill_chunk=N`, paged layout): the queue head's prefill
+runs in N-token windows (N rounded up to whole blocks), one a step, and
+`step()` alternates pending prefill work with a decode step for the
+residents. A partial prefill is parked in the block pool as prefix-cache
+entries that the next window extends; cancel, expiry, a hot swap or pool
+pressure release it. Non-final windows are logged as "prefill_chunk" rows
+that emit nothing; the final window admits the request as a "prefill" row.
+
+Speculative decoding (`spec_decode`, paged layout): once the executor
+installs the draft variant's tree (`set_draft_params`), a decode step drafts
+k greedy tokens under it into leased scratch blocks, verifies the k+1 window
+under the resident variant in one batched forward, accepts the longest
+agreeing prefix plus the verify token, writes the accepted window's KV into
+the canonical chain and returns the leases: a "spec_verify" row. It stands
+down to plain decode at k = 0, without draft weights, when the draft is the
+resident variant, for a non-greedy resident, near max_seq and under pool
+pressure.
 
 The dense layout (`kv_layout="dense"`, or "auto" for a family without the
 paged contract) keeps one cache tree of `max_batch` slots from the model's
 `cache_spec`. An admission batch runs one padded prefill (mamba2: the ssd
 kernel on the card) and copies each row's cache leaves into its slot; a
 decode step runs the model's `decode_step` over every slot and updates the
-cache in place. There is no prefix cache, copy-on-write or preemption on
-this layout, in the JAX package either. The port serves it for the mamba2
-family only.
-
-Not ported yet, and refused at construction with the ROADMAP item that will
-bring them: chunked prefill, speculative decoding, the transformer's dense
-decode, and the data-parallel mesh (Queue 1 items 4.1-4.3 and 9).
+cache in place. There is no prefix cache, copy-on-write, preemption, chunked
+prefill or speculative decoding on this layout (the JAX package refuses the
+last two there for mamba2 too). The port serves it for the mamba2 family
+only: the transformer's dense decode, and with it the dense chunk branch,
+and the data-parallel mesh are refused at construction with the ROADMAP item
+that will bring them (Queue 1 items 4.3 and 9).
 """
 from __future__ import annotations
 
@@ -83,6 +101,14 @@ class Request:
     admit_seq: int = -1                    # admission order (victim tie-break)
     # saved token sequence (exact KV positions 0..len-1) while preempted
     resume_row: Optional[np.ndarray] = None
+    # chunked-prefill progress while WAITING (cleared on admission/release):
+    # the bucket-padded prompt row, how many positions are prefilled, and the
+    # parked block chain holding them
+    chunk_row: Optional[np.ndarray] = None
+    chunk_done: int = 0
+    chunk_blocks: List[int] = dataclasses.field(default_factory=list)
+    chunk_cached: int = 0                  # real prompt tokens served from cache
+    chunk_hit: bool = False
 
 
 class VirtualClock:
@@ -127,21 +153,63 @@ def check_paged_kernel(cfg: ModelConfig, block_size: int):
 
 
 def refuse_unported(config: EngineConfig, mesh=None):
-    """Raise NotImplementedError, naming the ROADMAP item, for an engine
-    configuration the port does not serve yet. The dense layout depends on
-    the model's family and is checked once the layout is resolved."""
-    if config.prefill_chunk is not None:
-        raise NotImplementedError(
-            "prefill_chunk: chunked prefill is not ported yet "
-            "(ROADMAP Queue 1 item 4.1)")
-    if config.spec_decode is not None:
-        raise NotImplementedError(
-            "spec_decode: speculative decoding is not ported yet "
-            "(ROADMAP Queue 1 item 4.2)")
+    """Raise NotImplementedError, naming the ROADMAP item, for the
+    data-parallel mesh, which the port does not serve yet. The dense layout
+    depends on the model's family and is checked by `resolve_layout`."""
     if mesh is not None or config.data_shards > 1:
         raise NotImplementedError(
             "mesh / data_shards > 1: the data-parallel engine is not "
             "ported yet (ROADMAP Queue 1 item 9)")
+
+
+def resolve_layout(cfg: ModelConfig, config: EngineConfig):
+    """-> (the KV layout `config` resolves to for `cfg`, its prefill window
+    rounded up to whole blocks on the paged layout, or None). Raises
+    ValueError where the JAX package's engine does, and
+    NotImplementedError, naming the ROADMAP item, for a dense layout on a
+    family other than mamba2. Reads no weights."""
+    if config.kv_layout not in ("auto", "paged", "dense"):
+        raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
+                         "expected 'auto', 'paged' or 'dense'")
+    model = get_model(cfg)
+    kv_layout = config.kv_layout
+    if kv_layout == "auto":
+        kv_layout = "paged" if model.supports_paged() else "dense"
+    if kv_layout == "paged" and not model.supports_paged():
+        raise ValueError(f"{cfg.name}: family {cfg.family!r} does not "
+                         "implement the paged KV contract")
+    chunk = config.prefill_chunk
+    if chunk is not None:
+        if chunk <= 0:
+            raise ValueError(f"prefill_chunk must be positive, got {chunk}")
+        if not model.supports_paged():
+            raise ValueError(
+                f"{cfg.name}: family {cfg.family!r} does not implement the "
+                "chunked prefill contract (pattern-1 transformer families "
+                "only)")
+        if kv_layout == "paged":
+            # block-aligned windows keep parked chains on block boundaries
+            chunk = -(-chunk // config.block_size) * config.block_size
+    sd = config.spec_decode
+    if sd is not None:
+        if kv_layout != "paged":
+            raise ValueError(
+                "spec_decode requires the paged KV layout: draft KV is "
+                "staged in leased pool blocks")
+        if sd.k < 0 or any(x < 0 for x in sd.k_ladder):
+            raise ValueError("spec_decode: draft lengths must be >= 0")
+    if kv_layout == "dense" and cfg.family != "mamba2":
+        if chunk is not None:
+            raise NotImplementedError(
+                "prefill_chunk with kv_layout='dense': the dense chunk branch "
+                "of ROADMAP Queue 1 item 4.1 comes with the transformer's "
+                "dense decode, which is not ported yet (ROADMAP Queue 1 item "
+                "4.3)")
+        raise NotImplementedError(
+            f"kv_layout='dense' serves the mamba2 family only; the dense "
+            f"decode of family {cfg.family!r} is not ported yet (ROADMAP "
+            "Queue 1 item 4.3)")
+    return kv_layout, chunk
 
 
 class ServingEngine:
@@ -173,9 +241,7 @@ class ServingEngine:
             over["prompt_buckets"] = tuple(prompt_buckets)
         self.config = config = base.replace(**over) if over else base
         refuse_unported(config, mesh)
-        if config.kv_layout not in ("auto", "paged", "dense"):
-            raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
-                             "expected 'auto', 'paged' or 'dense'")
+        kv_layout, self.prefill_chunk = resolve_layout(cfg, config)
         # kv_cache_dtype: an explicit int8 on either surface wins, and both
         # end up agreeing (as in the JAX package)
         if config.kv_cache_dtype not in ("bf16", "int8"):
@@ -193,17 +259,6 @@ class ServingEngine:
         self.cfg = cfg
         self.rcfg = rcfg
         self.model = get_model(cfg)
-        kv_layout = config.kv_layout
-        if kv_layout == "auto":
-            kv_layout = "paged" if self.model.supports_paged() else "dense"
-        if kv_layout == "paged" and not self.model.supports_paged():
-            raise ValueError(f"{cfg.name}: family {cfg.family!r} does not "
-                             "implement the paged KV contract")
-        if kv_layout == "dense" and cfg.family != "mamba2":
-            raise NotImplementedError(
-                f"kv_layout='dense' serves the mamba2 family only; the dense "
-                f"decode of family {cfg.family!r} is not ported yet (ROADMAP "
-                "Queue 1 item 4.3)")
         self.kv_layout = kv_layout
         self.params = params
         self.max_batch = max_batch = config.max_batch
@@ -230,13 +285,23 @@ class ServingEngine:
         self._admit_seq = 0
         self._rid_counter = 0
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        # speculative decoding: the draft tree arrives via `set_draft_params`;
+        # until then, and whenever k == 0, steps take the plain decode path.
+        # Draft KV lives in leased scratch blocks, one lease list per slot:
+        # the canonical block tables only ever hold verify-variant KV.
+        sd = config.spec_decode
+        self.spec_k = sd.k if sd is not None else 0
+        self.draft_params = None
+        self.draft_variant = sd.draft_variant if sd is not None else ""
+        self._spec_leases: List[List[int]] = [[] for _ in range(max_batch)]
+        self._prefer_prefill = True      # alternation flag: prefill <-> decode
         # telemetry
         self.tokens_emitted = 0
         self.prefill_tokens_total = 0
         self.prefill_tokens_saved = 0
         self.peak_active = 0
-        self.draft_tokens = 0
-        self.accepted_tokens = 0
+        self.draft_tokens = 0            # drafted this engine's lifetime
+        self.accepted_tokens = 0         # drafts that entered an output
         # decode steps whose paged-attention reads ran the plain version (a
         # CPU paged engine); a pure function of the device, counted per step
         self._paged_fallback = (kv_layout == "paged"
@@ -280,10 +345,34 @@ class ServingEngine:
     # -- public API ---------------------------------------------------------
 
     def swap_params(self, params, variant_name: str):
-        """Hot-swap the weight tree (CarbonCall Q8<->Q4 switch)."""
+        """Hot-swap the weight tree (CarbonCall Q8<->Q4 switch). Parked
+        partial prefills are dropped (their KV was computed under the old
+        weights) and an in-flight draft's leases go back to the pool."""
         self.params = params
         self.variant_name = variant_name
         self.swap_count += 1
+        for req in self.scheduler.waiting:
+            if req.chunk_row is not None:
+                self._release_chunk(req)
+        for i in range(self.max_batch):
+            self._spec_release_leases(i)
+
+    def set_draft_params(self, params, variant_name: str):
+        """Install the draft variant's weight tree (normally the executor's
+        pre-quantized Q4 tree). Spec steps stay off until this is set, and
+        stand down whenever the draft and resident variants coincide."""
+        if self.config.spec_decode is None:
+            raise ValueError(
+                "set_draft_params: engine was built without spec_decode")
+        self.draft_params = params
+        self.draft_variant = variant_name
+
+    def set_draft_k(self, k: int):
+        """Set the draft length (the governor's carbon-modulated knob);
+        k = 0 degrades to plain decode."""
+        if k < 0:
+            raise ValueError(f"set_draft_k: k must be >= 0, got {k}")
+        self.spec_k = int(k)
 
     def submit(self, req: Request) -> RequestHandle:
         """Queue a request; returns an async handle (poll/result/cancel)."""
@@ -304,6 +393,7 @@ class ServingEngine:
             return False
         if req.status == WAITING:
             self.scheduler.remove(req)
+            self._release_chunk(req)
         elif req in self.slots:
             self._free_slot(self.slots.index(req))
         req.status = CANCELLED
@@ -342,25 +432,51 @@ class ServingEngine:
         return EngineStats.from_engine(self)
 
     def step(self) -> List[Request]:
-        """Admit waiting requests into free slots (one batched prefill or one
-        preemption-resume re-prefill) or run one batched decode step.
-        Returns requests completed this step."""
+        """Admit waiting requests into free slots (one batched prefill, one
+        preemption-resume re-prefill, or, with `prefill_chunk`, one prefill
+        window) or run one batched decode step (speculative when armed).
+        With chunking the step alternates pending prefill work with a decode
+        step for the residents. Returns requests completed this step."""
         t0 = self.clock()
         resident_rids = [s.rid for s in self.slots if s is not None]
-        self.scheduler.expire_due(t0)
+        for req in self.scheduler.expire_due(t0):
+            self._release_chunk(req)
         completed: List[Request] = []
-        work = self._prefill_work()
+        work: Optional[Dict] = None
+        spec: Optional[Dict] = None
+        if self.prefill_chunk is None or self._prefer_prefill \
+                or not self.active:
+            work = self._prefill_work()
+        if work is None and not self.active \
+                and self.prefill_chunk is not None:
+            # liveness fallback: the head is blocked and nothing can decode,
+            # so advance the first other parked chunk
+            head = self.scheduler.head()
+            for req in self.scheduler.waiting:
+                if req is not head and req.chunk_row is not None:
+                    work = self._chunk_step(req, self._free_slots())
+                    if work is not None:
+                        break
         if work is not None:
             kind = work["kind"]
             tokens_this_step = work["tokens"]
             charged, cached = work["charged"], work["cached"]
             rids = work["rids"]
             occupancy = max(self.active, 1)
+            self._prefer_prefill = False
         elif self.active:
             charged = cached = 0
-            tokens_this_step, rids = self._decode_active(completed)
-            kind = "decode"
+            # None falls back to plain decode (pool pressure, a row too near
+            # max_seq): spec never preempts
+            spec = self._spec_step(completed) if self._spec_ready() else None
+            if spec is not None:
+                tokens_this_step, rids = spec["tokens"], spec["rids"]
+                kind = "spec_verify"
+            else:
+                tokens_this_step, rids = self._decode_active(completed)
+                kind = "decode"
             occupancy = max(len(rids), 1)
+            self._prefer_prefill = True
             if self._paged_fallback:
                 self.kernel_fallbacks += 1
         else:
@@ -374,8 +490,16 @@ class ServingEngine:
             return completed
         self.peak_active = max(self.peak_active, self.active, occupancy)
         if self.step_cost_fn is not None and hasattr(self.clock, "advance"):
-            cost_tokens = charged if kind != "decode" else tokens_this_step
-            cost = float(self.step_cost_fn(kind, cost_tokens, occupancy))
+            if kind == "spec_verify":
+                # the k draft rounds at the draft variant's power point, the
+                # one batched verify at the resident variant's
+                cost = (float(self.step_cost_fn(
+                            "spec_draft", spec["drafted"], occupancy))
+                        + float(self.step_cost_fn(
+                            "spec_verify", spec["verified"], occupancy)))
+            else:
+                cost_tokens = charged if kind != "decode" else tokens_this_step
+                cost = float(self.step_cost_fn(kind, cost_tokens, occupancy))
             if cost > 0.0:
                 self.clock.advance(cost)
         for req in completed:                # completion is at end of step
@@ -383,12 +507,18 @@ class ServingEngine:
             self.scheduler.note_done(req, req.done_time)
         dt = max(self.clock() - t0, 1e-9)
         self.tokens_emitted += tokens_this_step
-        self.step_log.append({
+        rec = {
             "kind": kind, "tokens": tokens_this_step, "dt": dt,
             "tps": tokens_this_step / dt, "variant": self.variant_name,
             "active": occupancy, "prompt_tokens": charged,
             "cached_tokens": cached, "rids": rids,
-            "resident_rids": resident_rids})
+            "resident_rids": resident_rids}
+        if spec is not None:
+            # spec rows emit per-rid token counts: `emitted`
+            rec["drafted"] = spec["drafted"]
+            rec["accepted"] = spec["accepted"]
+            rec["emitted"] = spec["emitted"]
+        self.step_log.append(rec)
         return completed
 
     def run_until_drained(self, max_steps: int = 100000) -> List[Request]:
@@ -416,16 +546,20 @@ class ServingEngine:
         if head is None:
             return None
         free = self._free_slots()
-        if not free:
-            return None
         if head.resume_row is not None:
             # strict priority: a blocked resume never lets lower-priority
             # fresh admissions jump it — decode continues instead
+            if not free:
+                return None
             got = self._try_resume(head, free[0])
             if got < 0:
                 return None
             return {"kind": "prefill", "tokens": 0, "charged": got,
                     "cached": 0, "rids": [head.rid]}
+        if self._chunk_needed(head):
+            return self._chunk_step(head, free)
+        if not free:
+            return None
         admitted, charged, cached = self._admit_batch(free)
         if not admitted:
             return None
@@ -483,8 +617,9 @@ class ServingEngine:
         bs = self.block_size
         cand: List[Request] = []
         for req in self.scheduler.waiting:
-            if req.resume_row is not None:
-                break               # resumes re-admit one per step
+            if req.resume_row is not None or self._chunk_needed(req):
+                break               # resumes and chunked prefills advance
+                                    # one per step
             cand.append(req)
             if len(cand) == len(free):
                 break
@@ -566,14 +701,196 @@ class ServingEngine:
         self.prefill_tokens_saved += cached
         return [r["req"] for r in rows], charged, cached
 
+    # -- chunked prefill -----------------------------------------------------
+
+    def _chunk_needed(self, req: Request) -> bool:
+        """Whether `req` admits through the chunked path: chunking enabled,
+        and the prompt's non-cached prefill work exceeds one window."""
+        if self.prefill_chunk is None or req.resume_row is not None:
+            return False
+        if req.chunk_row is not None:
+            return True                  # mid-chunk: must finish via chunks
+        b = _bucket(len(req.prompt), self.prompt_buckets)
+        if b <= self.prefill_chunk:
+            return False
+        row = self._padded_row(req.prompt, b)
+        hit = self.prefix_cache.lookup(row, salt=self.variant_name)
+        cached = hit.cached_len if hit else 0
+        if cached >= b:
+            return False                 # whole-row hit: one cheap admission
+        return b - cached > self.prefill_chunk
+
+    def _chunk_init(self, req: Request):
+        """First window of a chunked prefill: bucket the prompt and adopt the
+        longest cached prefix chain, one ref per block (as an admission), so
+        eviction cannot free the chain while it is extended."""
+        b = _bucket(len(req.prompt), self.prompt_buckets)
+        row = self._padded_row(req.prompt, b)
+        cached_len = 0
+        hit = self.prefix_cache.lookup(row, salt=self.variant_name)
+        if hit is not None:
+            cached_len = hit.cached_len
+            for bid in hit.blocks:
+                self.block_pool.incref(bid)
+            req.chunk_blocks = list(hit.blocks)
+        pad = b - min(len(req.prompt), b)
+        req.chunk_row = row
+        req.chunk_done = cached_len
+        req.chunk_cached = max(0, cached_len - pad)
+        req.chunk_hit = cached_len > 0
+
+    def _chunk_window(self, req: Request, start: int, end: int,
+                      final: bool):
+        """Run the prefill window [start, end) of the parked chain and write
+        its KV into the chain's blocks. Returns the last-position logits
+        (only when `final`)."""
+        bs = self.block_size
+        row = req.chunk_row
+        nwin = end - start
+        if start == 0:
+            # cold first window (never final: `_chunk_needed` guarantees it
+            # cannot cover the whole bucket): the stock prefill over a
+            # right-padded pow2 row, positions [0, end) scattered
+            W = _pow2(end, self.max_seq)
+            toks = np.zeros((self.max_batch, W), np.int32)
+            toks[0, :end] = row[:end]
+            _, entry, _ = self.model.prefill(self.params, self._batch(toks),
+                                             self.rcfg)
+            dst = [req.chunk_blocks[p // bs] * bs + p % bs
+                   for p in range(end)]
+            self._scatter(entry, dst, [0] * end, list(range(end)))
+            return None
+        # later windows: the parked chain is the cached prefix and the window
+        # a left-padded suffix at its exact absolute positions, rounded as a
+        # prefix-cache hit's admission is
+        W = _pow2(nwin, len(row))
+        nbp = _pow2(-(-start // bs), self.blocks_per_slot)
+        toks = np.zeros((self.max_batch, W), np.int32)
+        toks[0, W - nwin:] = row[start:end]
+        bids = np.zeros((self.max_batch, nbp), np.int32)
+        bids[0, :start // bs] = req.chunk_blocks[:start // bs]
+        plens = np.zeros((self.max_batch,), np.int32)
+        plens[0] = start
+        batch = self._batch(toks)
+        batch["positions"] = torch.arange(end - W, end, dtype=torch.int32,
+                                          device=self.device)
+        k_pre, v_pre = self._gather_prefix(bids)
+        logits, (k_win, v_win) = self.model.prefill_chunk(
+            self.params, batch, k_pre, v_pre,
+            torch.as_tensor(plens, device=self.device), self.rcfg,
+            need_logits=final)
+        dst = [req.chunk_blocks[p // bs] * bs + p % bs
+               for p in range(start, end)]
+        src_s = [p - (end - W) for p in range(start, end)]
+        entry = quantize_kv_for_cache("k_scale" in self.pool, k_win, v_win)
+        self._scatter(entry, dst, [0] * nwin, src_s)
+        return logits
+
+    def _chunk_step(self, req: Request, free: List[int]) -> Optional[Dict]:
+        """Advance `req`'s chunked prefill by one window (paged layout; the
+        dense branch comes with the transformer's dense decode). Returns
+        the step-log record, or None when the window cannot run yet."""
+        bs = self.block_size
+        if req.chunk_row is None:
+            self._chunk_init(req)
+        row = req.chunk_row
+        b = len(row)
+        start = req.chunk_done
+        end = min(start + self.prefill_chunk, b)
+        final = end >= b
+        if final and not free:
+            return None                  # the final window needs a slot
+        need = -(-end // bs) - len(req.chunk_blocks)
+        if need > 0:
+            if not self._reclaim(need + self.active + 1,
+                                 priority=req.priority, exclude=req):
+                return None              # parked state persists; retry later
+            fresh = self._alloc_blocks(need)
+            if fresh is None:            # unreachable after _reclaim
+                return None
+            req.chunk_blocks.extend(fresh)
+        logits = self._chunk_window(req, start, end, final)
+        req.chunk_done = end
+        pad = b - min(len(req.prompt), b)
+        charged = max(0, end - max(start, pad))
+        self.prefill_tokens_total += charged
+        if not final:
+            # park the progress as ordinary prefix-cache entries: pinned by
+            # the request's refs while it extends them, shareable by
+            # admissions of the same prefix, evictable once dropped
+            self.prefix_cache.insert(row[:end], req.chunk_blocks,
+                                     salt=self.variant_name)
+            self.scheduler.note_chunk_step(req)
+            return {"kind": "prefill_chunk", "tokens": 0, "charged": charged,
+                    "cached": 0, "rids": [req.rid]}
+        # final window: admit into the slot as a batched admission does
+        charged += max(0, len(req.prompt) - b)   # no free truncation discount
+        slot = free[0]
+        self.scheduler.note_admitted(req, self.clock())
+        last = logits[0].clone()
+        self.prefix_cache.insert(row, req.chunk_blocks, last_logits=last,
+                                 salt=self.variant_name)
+        if req.chunk_hit:
+            self.prefix_cache.hits += 1
+        else:
+            self.prefix_cache.misses += 1
+        cached = req.chunk_cached
+        self.prefill_tokens_total += cached
+        self.prefill_tokens_saved += cached
+        self.slot_blocks[slot] = list(req.chunk_blocks)   # refs transfer
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(req.chunk_blocks)] = req.chunk_blocks
+        self.lengths[slot] = b
+        self._place(req, slot, row)
+        tok = self._sample(last[None, :], req)
+        self._emit(req, slot, int(tok[0]))
+        self._slot_emit0[slot] = len(req.output)
+        self._clear_chunk(req)
+        return {"kind": "prefill", "tokens": 1, "charged": charged,
+                "cached": cached, "rids": [req.rid]}
+
+    def _clear_chunk(self, req: Request):
+        req.chunk_row = None
+        req.chunk_done = 0
+        req.chunk_blocks = []
+        req.chunk_cached = 0
+        req.chunk_hit = False
+
+    def _release_chunk(self, req: Request):
+        """Drop a parked partial prefill (cancel, expiry, hot swap, pool
+        pressure): the request's block refs go, and its progress survives as
+        ordinary prefix-cache entries until eviction needs the blocks."""
+        if req.chunk_row is None:
+            return
+        for bid in req.chunk_blocks:
+            self.block_pool.decref(bid)
+        self._clear_chunk(req)
+        self.scheduler.note_chunk_dropped(req)
+
+    def _drop_parked_chunk(self, exclude: Optional[Request]) -> bool:
+        """Release the lowest-priority (newest on ties) parked partial
+        prefill other than `exclude`'s to relieve block pressure. The
+        request stays queued."""
+        cands = [r for r in self.scheduler.waiting
+                 if r.chunk_row is not None and r is not exclude]
+        if not cands:
+            return False
+        self._release_chunk(min(cands, key=lambda r: (r.priority, -r.seq)))
+        return True
+
     # -- preemption / resume -------------------------------------------------
 
-    def _reclaim(self, want_free: int, *, priority: Optional[int]) -> bool:
+    def _reclaim(self, want_free: int, *, priority: Optional[int],
+                 exclude: Optional[Request] = None) -> bool:
         """Bring the pool's free count up to `want_free`: first by LRU
-        prefix-cache eviction, then (when `priority` is given) by preempting
-        strictly-lower-priority running slots on the caller's behalf."""
+        prefix-cache eviction, then by dropping another waiting request's
+        parked partial prefill, then (when `priority` is given) by preempting
+        strictly-lower-priority running slots on the caller's behalf.
+        `exclude` protects the caller's own parked chain."""
         while self.block_pool.num_free < want_free:
             if self.prefix_cache.evict_lru():
+                continue
+            if self._drop_parked_chunk(exclude):
                 continue
             victim = None
             if priority is not None:
@@ -640,6 +957,8 @@ class ServingEngine:
                 return bid
             if self.prefix_cache.evict_lru():
                 continue
+            if self._drop_parked_chunk(None):
+                continue                 # parked chains yield before slots do
             active = [(s, r) for s, r in enumerate(self.slots)
                       if r is not None]
             if len(active) <= 1:
@@ -837,11 +1156,206 @@ class ServingEngine:
                 self.slot_blocks[i][blk] = new
                 self.cow_count += 1
 
+    # -- speculative decoding ------------------------------------------------
+
+    def _spec_ready(self) -> bool:
+        """Whether this step may draft: spec configured, draft weights
+        installed, k > 0, the draft is not the resident variant, and every
+        resident stream is greedy (acceptance compares argmaxes)."""
+        if (self.config.spec_decode is None
+                or self.spec_k <= 0 or self.draft_params is None
+                or self.draft_variant == self.variant_name):
+            return False
+        return all(r is None or r.temperature <= 0.0 for r in self.slots)
+
+    def _spec_reserve(self, n: int) -> bool:
+        """Ensure >= n free blocks by prefix-cache eviction only: a spec step
+        never preempts a slot or drops a parked chunk, it falls back."""
+        while self.block_pool.num_free < n:
+            if not self.prefix_cache.evict_lru():
+                return False
+        return True
+
+    def _spec_acquire_leases(self, i: int, L: int, k: int) -> List[int]:
+        """Lease scratch blocks covering draft positions [L, L+k-1] for slot
+        `i`. When L sits mid-block the first lease starts as a copy of the
+        canonical partial block, so drafts read the real prefix KV below L;
+        the canonical block itself is never written by a draft."""
+        bs = self.block_size
+        blocks = [self.block_pool.alloc()
+                  for _ in range(L // bs, (L + k - 1) // bs + 1)]
+        assert all(b is not None for b in blocks), \
+            "spec lease alloc failed despite reservation"
+        self._spec_leases[i] = blocks
+        if L % bs:
+            src = int(self.block_tables[i, L // bs])
+            if src:                      # always true for a live slot
+                self._copy_block(blocks[0], src)
+        return blocks
+
+    def _spec_release_leases(self, i: int):
+        """Return slot `i`'s draft scratch blocks to the pool (after the
+        verify, and on cancel, expiry, preemption and hot swap)."""
+        for bid in self._spec_leases[i]:
+            self.block_pool.decref(bid)
+        self._spec_leases[i] = []
+
+    def _spec_step(self, completed: List[Request]) -> Optional[Dict]:
+        """One speculative decode step over the resident slots: k greedy
+        draft rounds under the draft variant (KV into leased scratch blocks),
+        one batched verify forward under the resident variant over each
+        row's k+1 window, then the longest agreeing draft prefix plus the
+        verify token are emitted, their KV written into the canonical chain
+        (allocating and copying on write as a decode step does) and the
+        leases returned. None falls back to a plain decode step: the pool
+        cannot reserve the worst case, or a row is within k+1 of max_seq."""
+        bs, k = self.block_size, self.spec_k
+        live = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        need = 0
+        for i, _ in live:
+            L = int(self.lengths[i])
+            if L + k + 1 > self.max_seq:
+                return None
+            # the leases, one block per boundary the commit at [L, L+k]
+            # crosses, and an alloc or copy for the write block itself
+            need += (L + k - 1) // bs - L // bs + 1
+            need += (L + k) // bs - L // bs
+            bid = int(self.block_tables[i, L // bs])
+            if bid == 0 or self.block_pool.is_shared(bid):
+                need += 1
+        if not self._spec_reserve(need):
+            return None
+        dev = self.device
+
+        # -- draft: k greedy rounds under the draft variant ------------------
+        last0 = np.zeros((self.max_batch, 1), np.int32)
+        for i, r in live:
+            last0[i, 0] = r.output[-1] if r.output else (
+                r.prompt[-1] if r.prompt else 0)
+        draft_tables = self.block_tables.copy()
+        for i, _ in live:
+            L = int(self.lengths[i])
+            for j, bid in enumerate(self._spec_acquire_leases(i, L, k)):
+                draft_tables[i, L // bs + j] = bid
+        tables_t = torch.as_tensor(draft_tables, device=dev)
+        draft_lengths = self.lengths.copy()
+        draft_toks = np.zeros((self.max_batch, k), np.int32)
+        cur = last0.copy()
+        for j in range(k):
+            logits, self.pool = self.model.decode_step_paged(
+                self.draft_params, self.pool, torch.as_tensor(cur, device=dev),
+                torch.as_tensor(draft_lengths, device=dev), tables_t,
+                self.rcfg, seq_cap=self.max_seq)
+            nxt = self._greedy(logits)
+            for i, _ in live:
+                draft_toks[i, j] = nxt[i]
+                cur[i, 0] = nxt[i]
+                draft_lengths[i] += 1
+
+        # -- verify: one batched forward over the k+1 windows ----------------
+        W = k + 1
+        nbp = _pow2(max(-(-int(self.lengths[i]) // bs) for i, _ in live),
+                    self.blocks_per_slot)
+        toks = np.zeros((self.max_batch, W), np.int32)
+        poss = np.zeros((self.max_batch, W), np.int32)
+        bids = np.zeros((self.max_batch, nbp), np.int32)
+        plens = np.zeros((self.max_batch,), np.int32)
+        for i, _ in live:
+            L = int(self.lengths[i])
+            toks[i, 0] = last0[i, 0]
+            toks[i, 1:] = draft_toks[i]
+            poss[i] = np.arange(L, L + W)
+            nb = -(-L // bs)
+            bids[i, :nb] = self.block_tables[i, :nb]
+            plens[i] = L
+        batch = self._batch(toks)
+        batch["positions"] = torch.as_tensor(poss, device=dev)
+        k_pre, v_pre = self._gather_prefix(bids)
+        logits, (k_win, v_win) = self.model.verify_paged(
+            self.params, batch, k_pre, v_pre,
+            torch.as_tensor(plens, device=dev), self.rcfg)
+        greedy = self._greedy(logits)                       # (B, W)
+
+        # -- accept, commit canonical KV, return the leases ------------------
+        drafted = k * len(live)
+        accepted = 0
+        outs: List[List[int]] = []
+        dst: List[int] = []
+        src_b: List[int] = []
+        src_s: List[int] = []
+        for i, r in live:
+            L = int(self.lengths[i])
+            a = 0
+            while a < k and draft_toks[i, a] == greedy[i, a]:
+                a += 1
+            toks_out: List[int] = []
+            for j in range(a + 1):
+                t = int(greedy[i, j])
+                toks_out.append(t)
+                if (t == r.eos_id
+                        or len(r.output) + len(toks_out)
+                        >= r.max_new_tokens):
+                    break
+            e = len(toks_out)
+            accepted += min(e, a)        # the e-th token is the free verify
+            outs.append(toks_out)
+            # window position m holds the KV of position L+m; the last
+            # emitted token's KV is not written, as in plain decode
+            for p in range(L, L + e):
+                blk = p // bs
+                bid = int(self.block_tables[i, blk])
+                if bid == 0:
+                    new = self.block_pool.alloc()
+                    assert new is not None, "spec commit alloc underflowed"
+                    self.block_tables[i, blk] = new
+                    self.slot_blocks[i].append(new)
+                    bid = new
+                elif self.block_pool.is_shared(bid):
+                    new = self.block_pool.alloc()
+                    assert new is not None, "spec CoW alloc underflowed"
+                    self._copy_block(new, bid)
+                    self.block_pool.decref(bid)
+                    self.block_tables[i, blk] = new
+                    self.slot_blocks[i][blk] = new
+                    self.cow_count += 1
+                    bid = new
+                dst.append(bid * bs + p % bs)
+                src_b.append(i)
+                src_s.append(p - L)
+        entry = quantize_kv_for_cache("k_scale" in self.pool, k_win, v_win)
+        self._scatter(entry, dst, src_b, src_s)
+        for i, _ in live:
+            self._spec_release_leases(i)
+
+        emitted_total = 0
+        rids: List[int] = []
+        emitted: Dict[int, int] = {}
+        for (i, r), toks_out in zip(live, outs):
+            self.lengths[i] = min(int(self.lengths[i]) + len(toks_out),
+                                  self.max_seq)
+            for t in toks_out:
+                self._emit(r, i, t)
+            emitted_total += len(toks_out)
+            rids.append(r.rid)
+            emitted[r.rid] = len(toks_out)
+            if (toks_out[-1] == r.eos_id
+                    or len(r.output) >= r.max_new_tokens):
+                completed.append(r)      # done_time stamped at end of step
+                r.status = DONE
+                self._free_slot(i)
+        self.draft_tokens += drafted
+        self.accepted_tokens += accepted
+        self.scheduler.note_spec_step()
+        return {"tokens": emitted_total, "rids": rids, "drafted": drafted,
+                "verified": W * len(live), "accepted": accepted,
+                "emitted": emitted}
+
     def _free_slot(self, i: int):
         self.slots[i] = None
         self._slot_row[i] = None
         self._slot_emit0[i] = 0
         if self.kv_layout == "paged":
+            self._spec_release_leases(i)
             for bid in self.slot_blocks[i]:
                 self.block_pool.decref(bid)
             self.slot_blocks[i] = []
@@ -854,6 +1368,12 @@ class ServingEngine:
                              temperature=req.temperature)
         return toks.cpu().numpy()
 
+    def _greedy(self, logits) -> np.ndarray:
+        """Argmax over the last axis to host ids: `sample_tokens` at
+        temperature 0, without the generator (`_spec_ready` admits greedy
+        streams only)."""
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
     def _emit(self, req: Request, slot: int, tok: int):
         if req.first_token_time is None:
             req.first_token_time = self.clock()
@@ -862,7 +1382,8 @@ class ServingEngine:
     # -- telemetry ----------------------------------------------------------
 
     def recent_tps(self, window: int = 50) -> float:
-        log = [s for s in self.step_log[-window:] if s["kind"] == "decode"]
+        log = [s for s in self.step_log[-window:]
+               if s["kind"] in ("decode", "spec_verify")]
         if not log:
             return 0.0
         return sum(s["tokens"] for s in log) / max(sum(s["dt"] for s in log), 1e-9)

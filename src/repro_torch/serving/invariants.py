@@ -2,13 +2,17 @@
 
 The reconciliations read the same step-log and counter fields in both
 packages, so one corrupted engine state yields the same violations from
-either checker. The port's engine has no chunked prefill or speculative
-decoding yet, so the reference's checks of those paths come with them.
+either checker.
 
 It checks:
 
   * `tokens_emitted` reconciles with the step log;
-  * every admission appears as a logged "prefill" row;
+  * every admission appears as a logged "prefill" row, every non-final
+    chunk window as a "prefill_chunk" row, and no parked partial prefill
+    survives a drain;
+  * every speculative step appears as a "spec_verify" row, its per-rid
+    emitted counts reconcile with outputs, drafted/accepted counters match
+    the log, and no draft scratch lease survives a drain;
   * requeues equal preemptions; terminal statuses match per-tier counters;
   * every request's emitted-token count equals its logged prefill+decode
     appearances, and an expired request holds no resume state;
@@ -50,6 +54,11 @@ def check_invariants(engine, reqs: Sequence, *, flush: bool = True
         if s["kind"] == "decode":
             for r in s["rids"]:
                 dec_count[r] += 1
+        elif s["kind"] == "spec_verify":
+            # spec rows emit a per-rid token COUNT (accepted prefix + the
+            # verify token), recorded in the row's `emitted` map
+            for r, n in s["emitted"].items():
+                dec_count[r] += n
         elif s["tokens"] > 0:            # fresh admissions emit one token;
             for r in s["rids"]:          # resume re-prefills emit none
                 fresh_count[r] += 1
@@ -57,6 +66,22 @@ def check_invariants(engine, reqs: Sequence, *, flush: bool = True
     check(stats["admitted"] == sum(
         len(s["rids"]) for s in log if s["kind"] == "prefill"),
         "admitted != logged prefill rows")
+    check(stats["chunk_steps"] == sum(
+        1 for s in log if s["kind"] == "prefill_chunk"),
+        "chunk_steps != logged prefill_chunk rows")
+    check(stats.get("spec_steps", 0) == sum(
+        1 for s in log if s["kind"] == "spec_verify"),
+        "spec_steps != logged spec_verify rows")
+    check(sum(s.get("accepted", 0) for s in log)
+          == getattr(engine, "accepted_tokens", 0),
+          "accepted_tokens != step_log accepted sum")
+    check(sum(s.get("drafted", 0) for s in log)
+          == getattr(engine, "draft_tokens", 0),
+          "draft_tokens != step_log drafted sum")
+    check(all(not lease for lease in getattr(engine, "_spec_leases", [])),
+          "draft scratch lease survived the drain")
+    check(all(not r.chunk_blocks and r.chunk_row is None for r in reqs),
+          "parked partial prefill survived the drain")
     check(stats["requeues"] == stats["preemptions"],
           "requeues != preemptions")
     check(stats["waiting"] == 0, "waiting queue not drained")

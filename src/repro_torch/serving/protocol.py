@@ -200,9 +200,7 @@ class EngineStats:
 
     @classmethod
     def from_engine(cls, engine) -> "EngineStats":
-        """Snapshot a live `ServingEngine` (duck-typed; no engine import).
-        The port's engine has no chunked prefill or speculative decoding
-        yet, so their counters keep the schema's zero defaults."""
+        """Snapshot a live `ServingEngine` (duck-typed; no engine import)."""
         sched = engine.scheduler_stats()
         return cls(
             admitted=int(sched["admitted"]),
@@ -210,6 +208,8 @@ class EngineStats:
             requeues=int(sched["requeues"]),
             expired=int(sched["expired"]),
             cancelled=int(sched["cancelled"]),
+            chunk_steps=int(sched["chunk_steps"]),
+            chunk_drops=int(sched["chunk_drops"]),
             queue_wait_s=float(sched["queue_wait_s"]),
             waiting=int(sched["waiting"]),
             peak_active=int(sched["peak_active"]),
@@ -217,6 +217,11 @@ class EngineStats:
             tokens_emitted=int(engine.tokens_emitted),
             decode_tps=float(engine.recent_tps(
                 window=max(len(engine.step_log), 1))),
+            spec_steps=int(sched.get("spec_steps", 0)),
+            draft_tokens=int(getattr(engine, "draft_tokens", 0)),
+            accepted_tokens=int(getattr(engine, "accepted_tokens", 0)),
+            accept_rate=(int(getattr(engine, "accepted_tokens", 0))
+                         / max(int(getattr(engine, "draft_tokens", 0)), 1)),
             kernel_fallbacks=int(getattr(engine, "kernel_fallbacks", 0)),
             tiers=sched["tiers"],
             prefix_cache=dict(engine.prefix_cache_stats()))

@@ -184,6 +184,9 @@ class Scheduler:
         self.expired = 0
         self.cancelled = 0
         self.queue_wait_s = 0.0
+        self.chunk_steps = 0        # non-final chunked-prefill steps run
+        self.chunk_drops = 0        # partial prefills released un-admitted
+        self.spec_steps = 0         # speculative draft+verify decode steps
         self._tiers: Dict[str, Dict] = {}
 
     # -- per-tier telemetry --------------------------------------------------
@@ -213,6 +216,21 @@ class Scheduler:
     def note_cancelled(self, req: "Request"):
         self.cancelled += 1
         self._tier(req)["cancelled"] += 1
+
+    def note_chunk_step(self, req: "Request"):
+        """Count one non-final chunked-prefill step (the request stays
+        WAITING at the queue head; its partial KV is parked in the pool)."""
+        self.chunk_steps += 1
+
+    def note_chunk_dropped(self, req: "Request"):
+        """Count a partial prefill released before admission (cancel, expiry,
+        hot swap, or pool pressure dropping a parked chain)."""
+        self.chunk_drops += 1
+
+    def note_spec_step(self):
+        """Count one speculative decode step (k drafts + one batched verify
+        — a single scheduler unit, like a plain decode step)."""
+        self.spec_steps += 1
 
     # -- queue ---------------------------------------------------------------
 
@@ -326,6 +344,9 @@ class Scheduler:
                 "requeues": self.requeues,
                 "expired": self.expired,
                 "cancelled": self.cancelled,
+                "chunk_steps": self.chunk_steps,
+                "chunk_drops": self.chunk_drops,
+                "spec_steps": self.spec_steps,
                 "queue_wait_s": round(self.queue_wait_s, 6),
                 "waiting": len(self._queue),
                 "tiers": self.tier_stats()}

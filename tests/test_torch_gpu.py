@@ -425,3 +425,57 @@ def test_ssd_repeat_is_bit_identical(gen, B, S, H, P, G, N, Q):
     y2, fs2 = ssd_ops.launch(*ins, chunk=Q)
     torch.cuda.synchronize()
     assert torch.equal(y, y2) and torch.equal(fs, fs2)
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill and speculative decoding on a CUDA paged engine
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("feature", ["spec", "chunked"])
+def test_engine_feature_runs_the_kernels(gen, feature):
+    """The reduced carboncall-qwen2-7b on a CUDA paged engine, drafting with
+    Q4 (k 2) or admitting 100-170-token prompts in 32-token windows beside
+    decoding residents: no step falls back, the model kernels launch and the
+    invariant sweep is clean."""
+    import numpy as np
+    from repro_torch.common.registry import get_arch
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.configs.reduced import reduce_config
+    from repro_torch.models import get_model
+    from repro_torch.quant.qtensor import init_quantized
+    from repro_torch.serving import (EngineClient, ServingEngine,
+                                     SessionRequest, SpecDecodeConfig,
+                                     check_invariants)
+    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+    v = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
+                       "cuda")
+    spec = feature == "spec"
+    eng = ServingEngine(cfg, v["q8"], RuntimeConfig(), max_batch=4,
+                        max_seq=256, kv_layout="paged",
+                        prefill_chunk=None if spec else 32,
+                        spec_decode=SpecDecodeConfig("q4", k=2)
+                        if spec else None, device="cuda")
+    eng.variant_name = "q8"
+    if spec:
+        eng.set_draft_params(v["q4"], "q4")
+    rng = np.random.default_rng(0)
+    lens = (12, 20, 30, 9) if spec else (20, 30, 100, 170)
+    client = EngineClient(eng)
+    kernels.reset_launch_counts()
+    hs = [client.submit(SessionRequest(
+        prompt=[int(t) for t in rng.integers(2, 512, size=n)],
+        max_new_tokens=12, eos_id=-1)) for n in lens]
+    eng.run_until_drained()
+    launches = kernels.launch_counts()
+    st = eng.stats()
+    assert eng.kernel_fallbacks == 0
+    assert all(len(h.request.output) == 12 for h in hs)
+    if spec:
+        assert st.spec_steps > 0 and st.draft_tokens > 0
+        assert launches["q4_matmul"] > 0
+    else:
+        assert st.chunk_steps > 0
+        assert launches["flash_attention"] > 0
+    assert launches["q8_matmul"] > 0 and launches["paged_attention"] > 0
+    assert check_invariants(eng, [h.request for h in hs]) == []

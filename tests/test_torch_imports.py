@@ -119,12 +119,20 @@ def tiny():
     return cfg, params
 
 
-@pytest.mark.parametrize("kw", [
-    {"prefill_chunk": 32}, {"spec_decode": SpecDecodeConfig()},
-    {"kv_layout": "dense"}, {"mesh": object()}])
-def test_engine_refuses_unported_options(tiny, kw):
+@pytest.mark.parametrize("kw,exc,match", [
+    # chunked prefill and speculative decoding are ported for the paged
+    # layout; what stays refused on the dense one
+    pytest.param({"prefill_chunk": 32, "kv_layout": "dense"},
+                 NotImplementedError, "ROADMAP Queue 1 item 4.1", id="kw0"),
+    pytest.param({"spec_decode": SpecDecodeConfig(), "kv_layout": "dense"},
+                 ValueError, "requires the paged KV layout", id="kw1"),
+    pytest.param({"kv_layout": "dense"}, NotImplementedError, "ROADMAP",
+                 id="kw2"),
+    pytest.param({"mesh": object()}, NotImplementedError, "ROADMAP",
+                 id="kw3")])
+def test_engine_refuses_unported_options(tiny, kw, exc, match):
     cfg, params = tiny
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(exc, match=match):
         ServingEngine(cfg, params, RuntimeConfig(), device="cpu", **kw)
 
 

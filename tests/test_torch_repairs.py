@@ -98,15 +98,26 @@ def test_selector_on_cpu_uses_the_seeded_cpu_encoder():
 
 
 @pytest.mark.parametrize("config,item", [
-    (EngineConfig(prefill_chunk=32), "Queue 1 item 4.1"),
-    (EngineConfig(spec_decode=SpecDecodeConfig()), "Queue 1 item 4.2"),
-    (EngineConfig(kv_layout="dense"), "Queue 1 item 4.3"),
+    # chunked prefill on the dense layout waits for the transformer's dense
+    # decode; speculative decoding needs the paged layout (the JAX package's
+    # ValueError)
+    pytest.param(EngineConfig(prefill_chunk=32, kv_layout="dense"),
+                 (NotImplementedError, "Queue 1 item 4.1"),
+                 id="config0-Queue 1 item 4.1"),
+    pytest.param(EngineConfig(spec_decode=SpecDecodeConfig(),
+                              kv_layout="dense"),
+                 (ValueError, "requires the paged KV layout"),
+                 id="config1-Queue 1 item 4.2"),
+    pytest.param(EngineConfig(kv_layout="dense"),
+                 (NotImplementedError, "Queue 1 item 4.3"),
+                 id="config2-Queue 1 item 4.3"),
 ])
 @pytest.mark.parametrize("entry", ["engine", "executor"])
 def test_refusals_name_the_roadmap_items(config, item, entry):
     """Both entry points refuse before any weights are used, so the engine
     gets none; the dense layout is refused for the transformer family."""
-    with pytest.raises(NotImplementedError, match=item):
+    exc, match = item
+    with pytest.raises(exc, match=match):
         if entry == "engine":
             ServingEngine(reduce_config(get_arch("carboncall-qwen2-7b")),
                           None, RuntimeConfig(), config=config, device="cpu")

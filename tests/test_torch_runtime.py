@@ -361,12 +361,21 @@ def test_entry_points_default_to_the_card():
 
 
 @pytest.mark.parametrize("config,item", [
-    (EngineConfig(max_batch=2, spec_decode=SpecDecodeConfig()),
-     "Queue 1 item 4"),
-    (EngineConfig(max_batch=2, data_shards=2), "Queue 1 item 9"),
-    (EngineConfig(max_batch=2, prefill_chunk=32), "Queue 1 item 4"),
+    # spec decoding and chunked prefill are served; what stays refused is
+    # what the JAX package refuses: a draft variant the executor has no
+    # weights for, a window that is not positive
+    pytest.param((EngineConfig(max_batch=2, spec_decode=SpecDecodeConfig(
+        draft_variant="q2")), ValueError, "not in variants"),
+        "Queue 1 item 4", id="config0-Queue 1 item 4"),
+    pytest.param((EngineConfig(max_batch=2, data_shards=2),
+                  NotImplementedError, "Queue 1 item 9"),
+                 "Queue 1 item 9", id="config1-Queue 1 item 9"),
+    pytest.param((EngineConfig(max_batch=2, prefill_chunk=0), ValueError,
+                  "must be positive"),
+                 "Queue 1 item 4", id="config2-Queue 1 item 4"),
 ])
 def test_executor_refuses_unported_configs(config, item):
-    with pytest.raises(NotImplementedError, match=item):
+    config, exc, match = config
+    with pytest.raises(exc, match=match):
         PC.EngineExecutor(PC.PAPER_MODELS[PROFILE], ORIN_AGX, config=config,
                           device="cpu")
