@@ -7,8 +7,10 @@ governor's mode and the switcher's variant decisions land on a live engine —
 tool prompts become token prompts sized by `n_tools_in_prompt`, decode runs
 through the batched slot loop, and Q8<->Q4 switches call
 `engine.swap_params` with pre-built quantized weight trees. On the card
-every linear layer runs the q8/q4 kernels, every decode step the paged
-attention kernel and every cold admission the flash attention kernel.
+every linear layer runs the q8/q4 kernels; on the transformer's paged
+layout every decode step runs the paged attention kernel, and on either
+layout every cold admission the flash attention kernel; over mamba2 (the
+dense layout) every admission runs the ssd kernel.
 
 Sessions, not blocking calls: `begin_query` submits nothing — it records the
 query and draws its attempt outcome lazily; `settle(sessions)` submits every
@@ -27,7 +29,10 @@ measured on the card. The external tool wait and the evaluation-pass
 re-prefill are charged analytically.
 
 The model is the reduced config of `arch` unless `model_cfg` is given (the
-full-width `get_arch(arch)` runs the same loop at full size on the card).
+full-width `get_arch(arch)` runs the same loop at full size on the card):
+carboncall-qwen2-7b (paged, or `kv_layout="dense"`) or mamba2-370m (dense).
+Step prices read the profile, never the model, so a model without a KV
+cache changes the step log and not the pricing formula.
 Weights are random from `seed`, drawn straight into the Q8/Q4 trees leaf by
 leaf (`quant.init_quantized`), so no full-precision tree is ever whole.
 `prefill_chunk` admits long tool prompts in windows between decode steps,
@@ -36,11 +41,10 @@ verifies with the resident one; with a `k_ladder`, each query's governor
 mode sets the draft length (`CarbonGovernor.k_for_mode`: the dirtier the
 grid, the lower the power mode and the longer the drafts). Draft rounds are
 priced at the draft variant's decode cost, a verify window as a prefill of
-its tokens. The dense layout, the data-parallel mesh and models other than
-the transformer family are not ported yet here: the executor refuses such a
-config with a `NotImplementedError` naming the ROADMAP item, and the
-invalid values the JAX package refuses with its `ValueError`, before it
-makes any weights.
+its tokens. The data-parallel mesh is not ported yet: the executor refuses
+it with a `NotImplementedError` naming the ROADMAP item, and what the JAX
+package refuses (among it chunked prefill and speculative decoding over
+mamba2) with its `ValueError`, before it makes any weights.
 """
 from __future__ import annotations
 
@@ -129,11 +133,6 @@ class EngineExecutor:
             raise ValueError(
                 f"spec_decode.draft_variant {sd.draft_variant!r} is not "
                 f"in variants {tuple(config.variants)}")
-        if cfg.family != "transformer":
-            raise NotImplementedError(
-                f"{cfg.name}: the CarbonCall runtime over family "
-                f"{cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-                "7a.2); serve it with ServingEngine directly")
         self.profile = profile
         self.power_model = PowerModel(hw)
         self.seed = seed

@@ -5,7 +5,10 @@
 // src/repro/kernels/paged_attention/paged_attention.py: q (B, K, G, H) bf16;
 // pools (num_blocks, bs, K, H) bf16, or int8 with (num_blocks, bs, K) f32
 // scales (the product is that of the values with their scales multiplied
-// in); block_tables (B, nb) int32; lengths (B,) int32. 1/sqrt(H) scale, the
+// in); block_tables (B, nb) int32; lengths (B,) int32. q scaled as it is
+// loaded, q / sqrt(H) in bf16 by the root rounded to bf16 (the JAX package's
+// `(q / jnp.sqrt(H)).astype(f32)` of its dense decode, whose weakly typed
+// root takes q's dtype; its Pallas kernel scales S in f32), the
 // tanh softcap before the mask, sliding window `pos > len - 1 - window`,
 // finite -1e30 mask, online softmax, row sum clamped at 1e-37, blocks past
 // `len` skipped, dead rows read the scratch block 0; out bf16 in q's layout.
@@ -79,6 +82,28 @@
 
 namespace {
 
+// a / d rounded to nearest in f32, from rcp = 1 / d rounded to nearest: the
+// product's remainder by one FMA, corrected by another (Markstein), three
+// instructions where the IEEE division is a call
+__device__ __forceinline__ float div_rn(float a, float d, float rcp) {
+  const float q = a * rcp;
+  return fmaf(fmaf(-q, d, a), rcp, q);
+}
+
+// a pair of bf16 q values divided by q_div, each quotient rounded to bf16
+__device__ __forceinline__ uint32_t scale_q2(uint32_t w, float q_div,
+                                             float q_rcp) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w));
+  __nv_bfloat162 r = __floats2bfloat162_rn(div_rn(f.x, q_div, q_rcp),
+                                           div_rn(f.y, q_div, q_rcp));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
+// a fragment's four q values scaled (the halves' order does not matter)
+__device__ __forceinline__ uint2 scale_q4(uint2 a, float q_div, float q_rcp) {
+  return make_uint2(scale_q2(a.x, q_div, q_rcp), scale_q2(a.y, q_div, q_rcp));
+}
+
 using bf16 = __nv_bfloat16;
 constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
@@ -104,7 +129,7 @@ struct Params {
   bf16* out;
   int K, G, H, bs, nb, splits, bps, warps;
   int row_bytes, pitch, stage_bytes;
-  float scale, cap;
+  float q_div, q_rcp, cap;      // bf16(sqrt(H)), its reciprocal; softcap
   int window;
 };
 
@@ -218,7 +243,9 @@ __global__ void __launch_bounds__(THREADS)
 
   // Q's A fragments (a0, a2: row g of each k step; rows 8..15 are zero), in
   // registers, or at H 256 in shared memory (written by warp 0; the same
-  // for every warp), which leaves the O fragments their registers
+  // for every warp), which leaves the O fragments their registers; scaled
+  // once the ring's first copies are in flight, so that the wait for the
+  // q loads overlaps theirs
   __shared__ uint2 q_s[Q_SMEM ? KS : 1][32];
   uint2 qa[Q_SMEM ? 1 : KS];
 #pragma unroll
@@ -295,6 +322,17 @@ __global__ void __launch_bounds__(THREADS)
 
 #pragma unroll 1
   for (int i = 0; i < STAGES - 1; ++i) issue(i);
+  if constexpr (Q_SMEM) {
+    if (warp == 0) {
+#pragma unroll
+      for (int k = 0; k < KS; ++k)
+        q_s[k][lane] = scale_q4(q_s[k][lane], p.q_div, p.q_rcp);
+    }
+    __syncthreads();  // q_s scaled
+  } else {
+#pragma unroll
+    for (int k = 0; k < KS; ++k) qa[k] = scale_q4(qa[k], p.q_div, p.q_rcp);
+  }
 #pragma unroll 1
   for (int i = 0; i < mine; ++i) {
     cp_async_wait<STAGES - 2>();
@@ -345,7 +383,7 @@ __global__ void __launch_bounds__(THREADS)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const int c = 8 * nt + 2 * qd + e, pos = pos0 + c;
-        float v = s[nt][e] * p.scale;
+        float v = s[nt][e];
         if (INT8) v *= kscale[c];
         if (p.cap > 0.f) v = tanhf(v / p.cap) * p.cap;
         v = (pos < len && pos >= lo) ? v : NEG_INF;
@@ -620,7 +658,8 @@ extern "C" int paged_attention(const void* q, const void* k_pool,
   const int hmax = H <= 64 ? 64 : H <= 128 ? 128 : 256;
   p.pitch = 16 * ((hmax * (int8 ? 1 : 2) / 16) | 1);
   p.stage_bytes = 2 * TILE * p.pitch + (int8 ? 2 * TILE * 4 : 0);
-  p.scale = 1.0f / sqrtf((float)H);
+  p.q_div = __bfloat162float(__float2bfloat16_rn(sqrtf((float)H)));
+  p.q_rcp = 1.0f / p.q_div;
   p.cap = cap;
   p.window = window;
   const int smem = warps * STAGES * p.stage_bytes + 16 * ((4 * bps + 15) / 16);

@@ -4,7 +4,9 @@
 the kernel's (B, K, G, H) GQA form and runs `csrc/paged_attention.cu`
 (replacing the Pallas `paged_attention_bkgh`) for CUDA tensors — bf16 pools
 plain, int8 pools with their scales folded into the products — or the
-gather reference in `ref.py` for CPU tensors. One call is one kernel launch
+gather reference in `ref.py` for CPU tensors. Both scale q as the JAX
+package's plain decode attention does: q / sqrt(H) in bf16, by the root
+rounded to bf16. One call is one kernel launch
 of `plan`'s grid: the chain is split across blocks so the grid fills the
 card, and the last block of a (row, kv head) merges the splits inside the
 same launch. The wrapper allocates only the output; the split partials and

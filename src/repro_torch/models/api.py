@@ -1,6 +1,6 @@
 """Uniform Model API over the family modules the port serves so far: the
-pattern-1 transformer (paged contract) and the attention-free mamba2 LM
-(dense cache contract)."""
+pattern-1 transformer (dense and paged KV contracts) and the attention-free
+mamba2 LM (dense cache contract)."""
 from __future__ import annotations
 
 import dataclasses
@@ -33,11 +33,11 @@ class Model:
 
     def prefill(self, params, batch, rcfg: RuntimeConfig):
         """-> (last-position logits (B,V), the rows' cache entry, lengths
-        (B,)): the prompt KV for the paged pool (transformer), or the
-        per-layer {conv, ssm} states for the dense cache (mamba2)."""
+        (B,)): the prompt KV of the S written positions (transformer), or
+        the per-layer {conv, ssm} states for the dense cache (mamba2)."""
         return self.mod.prefill(params, batch, self.cfg, rcfg)
 
-    # -- dense cache contract (mamba2) ----------------------------------------
+    # -- dense cache contract (both families) ---------------------------------
 
     def cache_spec(self, rcfg: RuntimeConfig, batch: int, max_seq: int):
         return self.mod.cache_spec(self.cfg, rcfg, batch, max_seq)

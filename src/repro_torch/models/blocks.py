@@ -97,6 +97,41 @@ def attn_apply(p, x, cfg: ModelConfig, *, cos, sin):
     return dense(o.reshape(B, S, -1), p["wo"]), (k, v)
 
 
+def _write_row(leaf, row, lengths):
+    """leaf[b, lengths[b]] = row[b] for every row b: the JAX package's masked
+    blend (`blocks._blend_row`) as a per-row index write. A row whose length
+    is the stripe's width matches no position and writes nothing: its index
+    is held at the last position and that position's own value goes back."""
+    Smax = leaf.shape[1]
+    rows = torch.arange(leaf.shape[0], device=leaf.device)
+    idx = torch.clamp(lengths, max=Smax - 1).long()
+    full = (lengths >= Smax).view(-1, *([1] * (row.ndim - 1)))
+    leaf[rows, idx] = torch.where(full, leaf[rows, idx], row.to(leaf.dtype))
+
+
+def attn_decode_apply(p, x, cfg: ModelConfig, *, cos, sin, cache_i, lengths):
+    """One-token decode against a per-layer dense cache dict {k, v[, k_scale,
+    v_scale]} of shape (B, Smax, K, H): the new token's KV is written IN
+    PLACE at `lengths[b]` (int8 quantizes only the new row), then the row
+    attends positions below min(lengths + 1, Smax). The read is the plain
+    `layers.decode_attention` over the whole stripe, dequantized to bf16 for
+    int8, which is what the JAX package runs here: it has no Pallas kernel
+    for the dense layout, so this is the port, not a fallback."""
+    from repro_torch.models.transformer import (dequant_cache,
+                                                quantize_kv_for_cache)
+    B = x.shape[0]
+    q, k, v = qkv_proj(p, x, cfg, cos, sin)
+    entry = quantize_kv_for_cache("k_scale" in cache_i, k[:, 0], v[:, 0])
+    for key, val in entry.items():
+        _write_row(cache_i[key], val, lengths)
+    k_read, v_read = dequant_cache(cache_i)
+    # a saturated row (lengths == Smax, write dropped) reads up to the last
+    # stored key, as the paged path's seq_cap clamp does
+    read_len = torch.clamp(lengths + 1, max=k_read.shape[1])
+    o = L.decode_attention(q, k_read, v_read, read_len)
+    return dense(o.reshape(B, 1, -1), p["wo"])
+
+
 def attn_decode_paged_apply(p, x, cfg: ModelConfig, *, cos, sin, pool_i,
                             lengths, block_tables, seq_cap: int):
     """One-token decode against a per-layer paged pool dict {k, v[, k_scale,

@@ -106,6 +106,20 @@ def naive_attention(q, k, v, *, causal=True, window=0, cap=0.0,
     return out.to(q.dtype)
 
 
+def _scale_q(q, H: int):
+    """q / sqrt(H) in q's dtype, by the divisor rounded to that dtype, then
+    f32: the JAX package's `(q / jnp.sqrt(H)).astype(f32)`, where the weakly
+    typed sqrt takes q's dtype (11.3125 for a bf16 q at H 128): the f32
+    quotient, correctly rounded, rounded to q's dtype. Dividing by the f32
+    or Python-float root rounds other bf16 quotients. The quotient is taken
+    in f64 (then f32): torch's f32 division on a CUDA tensor does not round
+    every quotient as IEEE division does."""
+    root = torch.tensor(math.sqrt(H)).to(q.dtype).item()
+    div = torch.full((), root, dtype=torch.float64, device=q.device)
+    return (q.to(torch.float64) / div).to(torch.float32).to(q.dtype).to(
+        torch.float32)
+
+
 def chunked_attention(q, k, v, *, chunk=ATTN_CHUNK):
     """Causal online-softmax attention over KV chunks, O(Sq·chunk) memory;
     query i sits at position i, as in a cold prefill."""
@@ -115,7 +129,7 @@ def chunked_attention(q, k, v, *, chunk=ATTN_CHUNK):
         chunk = Skv  # degenerate fallback for tiny shapes
     k = repeat_kv(k, N)
     v = repeat_kv(v, N)
-    qr = (q.transpose(1, 2).to(torch.float32) / math.sqrt(H))  # (B,N,Sq,H)
+    qr = _scale_q(q.transpose(1, 2), H)                      # (B,N,Sq,H)
     q_pos = torch.arange(Sq, device=q.device)
     m = torch.full((B, N, Sq), NEG_INF, dtype=torch.float32, device=q.device)
     lsum = torch.zeros((B, N, Sq), dtype=torch.float32, device=q.device)
@@ -201,7 +215,7 @@ def decode_attention(q, k_cache, v_cache, length, *, window=0, cap=0.0):
     B, _, N, H = q.shape
     Smax, K = k_cache.shape[1], k_cache.shape[2]
     G = N // K
-    qr = q.reshape(B, K, G, H).to(torch.float32) / math.sqrt(H)
+    qr = _scale_q(q.reshape(B, K, G, H), H)
     logits = torch.einsum("bkgh,bskh->bkgs", qr, k_cache.to(torch.float32))
     logits = softcap(logits, cap)
     pos = torch.arange(Smax, device=q.device)

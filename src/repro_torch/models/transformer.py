@@ -13,12 +13,14 @@ Entry points:
     per-row positions, logits at every position);
   * `decode_step_paged` — one token per row against the paged pool (the
     paged-attention kernel on the card);
-  * `paged_cache_spec` / `paged_block_bytes` / `quantize_kv_for_cache` —
-    pool layout, capacity math and the int8 KV encoding.
+  * `decode_step` — one token per row against the dense (L, B, max_seq, K,
+    H) stripe of `cache_spec` (plain `layers.decode_attention`, as in the
+    JAX package, which reaches no Pallas kernel there);
+  * `paged_cache_spec` / `paged_block_bytes` / `quantize_kv_for_cache` /
+    `dequant_cache` — pool layout, capacity math and the int8 KV encoding.
 Every linear layer goes through `quant.dense` (the q8/q4 kernels on the card).
 `embed_tokens` and `unembed` (with the tied-embedding head, h @ embed.T in
-f32) also serve the mamba2 LM. The transformer's dense cache layout is not
-ported yet (ROADMAP Queue 1 item 4.3).
+f32) also serve the mamba2 LM.
 """
 from __future__ import annotations
 
@@ -98,28 +100,44 @@ def _mlp_residual(p_i, x, cfg: ModelConfig):
 
 
 # ---------------------------------------------------------------------------
-# Paged cache (bf16 or int8 with per-(pos, head) scales)
+# Dense and paged caches (bf16 or int8 with per-(pos, head) scales)
 # ---------------------------------------------------------------------------
+
+
+def _kv_spec(shape, log, kv_cache_dtype: str):
+    """k and v leaves of `shape` (..., K, H), bf16, or int8 with f32 scale
+    leaves of one position and head each."""
+    if kv_cache_dtype == "int8":
+        return {
+            "k": ParamDef(shape, log, init="zeros", dtype="int8"),
+            "v": ParamDef(shape, log, init="zeros", dtype="int8"),
+            "k_scale": ParamDef(shape[:-1], log[:-1], init="zeros",
+                                dtype="fp32"),
+            "v_scale": ParamDef(shape[:-1], log[:-1], init="zeros",
+                                dtype="fp32"),
+        }
+    return {
+        "k": ParamDef(shape, log, init="zeros", dtype="bf16"),
+        "v": ParamDef(shape, log, init="zeros", dtype="bf16"),
+    }
+
+
+def cache_spec(cfg: ModelConfig, rcfg: RuntimeConfig, batch: int,
+               max_seq: int):
+    """Dense slot stripes: (layers, batch, max_seq, K, H) per leaf."""
+    Lc, K, H = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+    return _kv_spec((Lc, batch, max_seq, K, H),
+                    ("layers", "cache_batch", "cache_seq", "cache_heads",
+                     None), rcfg.kv_cache_dtype)
 
 
 def paged_cache_spec(cfg: ModelConfig, rcfg: RuntimeConfig, num_blocks: int,
                      block_size: int):
     """Paged pool layout: (layers, num_blocks, block_size, K, H) per leaf."""
     Lc, K, H = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
-    log = ("layers", None, None, "cache_heads", None)
-    slog = ("layers", None, None, "cache_heads")
-    shape = (Lc, num_blocks, block_size, K, H)
-    if rcfg.kv_cache_dtype == "int8":
-        return {
-            "k": ParamDef(shape, log, init="zeros", dtype="int8"),
-            "v": ParamDef(shape, log, init="zeros", dtype="int8"),
-            "k_scale": ParamDef(shape[:-1], slog, init="zeros", dtype="fp32"),
-            "v_scale": ParamDef(shape[:-1], slog, init="zeros", dtype="fp32"),
-        }
-    return {
-        "k": ParamDef(shape, log, init="zeros", dtype="bf16"),
-        "v": ParamDef(shape, log, init="zeros", dtype="bf16"),
-    }
+    return _kv_spec((Lc, num_blocks, block_size, K, H),
+                    ("layers", None, None, "cache_heads", None),
+                    rcfg.kv_cache_dtype)
 
 
 def paged_block_bytes(cfg: ModelConfig, block_size: int,
@@ -153,6 +171,16 @@ def requant_cache(cache_i, k, v):
         "k_scale": ks.to(torch.float32),
         "v_scale": vs.to(torch.float32),
     }
+
+
+def dequant_cache(cache_i):
+    """A cache dict {k, v[, k_scale, v_scale]} as bf16 (k, v) views: int8
+    codes times their scales in f32, rounded to bf16."""
+    if "k_scale" not in cache_i:
+        return cache_i["k"], cache_i["v"]
+    return tuple((cache_i[n].to(torch.float32)
+                  * cache_i[n + "_scale"].unsqueeze(-1)).to(torch.bfloat16)
+                 for n in ("k", "v"))
 
 
 def quantize_kv_for_cache(cache_has_scale: bool, k, v):
@@ -193,10 +221,11 @@ def prefill(params, batch, cfg: ModelConfig, rcfg: RuntimeConfig):
     """Cold prefill of full prompt rows. batch["tokens"]: (B, S).
 
     Returns (last-position logits (B, V), the prompt's KV encoded for the
-    pool — {k, v[, k_scale, v_scale]} each (L, B, S, ...) — and lengths (B,)).
-    The JAX package pads the KV into a dense (L, B, max_seq, ...) cache here;
-    the port has no dense layout, so it hands back exactly the S written
-    positions for the engine to scatter into its blocks."""
+    cache — {k, v[, k_scale, v_scale]} each (L, B, S, ...) — and lengths
+    (B,)). The JAX package pads the KV into a dense (L, B, max_seq, ...)
+    cache here; the port hands back exactly the S written positions, which
+    the paged engine scatters into its blocks and the dense engine copies
+    into a slot's stripe, zeroing the rest of it."""
     h, (k, v) = forward(params, batch, cfg, rcfg, collect_kv=True)
     entry = quantize_kv_for_cache(rcfg.kv_cache_dtype == "int8", k, v)
     logits = unembed(params, h[:, -1:, :], cfg)[:, 0]
@@ -290,3 +319,24 @@ def decode_step_paged(params, pool, tokens, lengths, block_tables,
         x = _mlp_residual(p_i, x + a, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg)[:, 0], pool
+
+
+def decode_step(params, cache, tokens, lengths, cfg: ModelConfig,
+                rcfg: RuntimeConfig, positions=None):
+    """One token per row against the dense cache of `cache_spec`. tokens:
+    (B, 1); lengths: (B,) int32 fill counts. Every row writes its new KV at
+    lengths[b] in place (a row at max_seq writes nothing) and attends
+    positions below min(lengths[b] + 1, max_seq). Returns (logits (B, V),
+    cache)."""
+    check_supported(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    cos, sin = rope_for(cfg, lengths[:, None])
+    for i in range(cfg.num_layers):
+        p_i = layer_params(params, i)
+        h = L.rms_norm(x, p_i["norms"]["pre_attn"], cfg.norm_eps)
+        cache_i = {key: leaf[i] for key, leaf in cache.items()}
+        a = B_.attn_decode_apply(p_i["attn"], h, cfg, cos=cos, sin=sin,
+                                 cache_i=cache_i, lengths=lengths)
+        x = _mlp_residual(p_i, x + a, cfg)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return unembed(params, x, cfg)[:, 0], cache

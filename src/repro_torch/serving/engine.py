@@ -23,13 +23,17 @@ the q8/q4 kernels. A CPU engine runs the kernels' plain versions, and each
 of its paged decode or speculative steps counts into `kernel_fallbacks`, as
 in the JAX package. The pool is updated in place.
 
-Chunked prefill (`prefill_chunk=N`, paged layout): the queue head's prefill
-runs in N-token windows (N rounded up to whole blocks), one a step, and
-`step()` alternates pending prefill work with a decode step for the
-residents. A partial prefill is parked in the block pool as prefix-cache
-entries that the next window extends; cancel, expiry, a hot swap or pool
-pressure release it. Non-final windows are logged as "prefill_chunk" rows
-that emit nothing; the final window admits the request as a "prefill" row.
+Chunked prefill (`prefill_chunk=N`, transformer family): the queue head's
+prefill runs in N-token windows, one a step, and `step()` alternates pending
+prefill work with a decode step for the residents. On the paged layout N is
+rounded up to whole blocks and a partial prefill is parked in the block pool
+as prefix-cache entries that the next window extends; cancel, expiry, a hot
+swap or pool pressure release it. On the dense layout N stays as given and
+the partial prefill is parked in a slot stripe the request reserves
+(`Request.chunk_slot`) until its final window admits it there; cancel,
+expiry and a hot swap release the stripe. Non-final windows are logged as
+"prefill_chunk" rows that emit nothing; the final window admits the request
+as a "prefill" row.
 
 Speculative decoding (`spec_decode`, paged layout): once the executor
 installs the draft variant's tree (`set_draft_params`), a decode step drafts
@@ -43,15 +47,17 @@ pressure.
 
 The dense layout (`kv_layout="dense"`, or "auto" for a family without the
 paged contract) keeps one cache tree of `max_batch` slots from the model's
-`cache_spec`. An admission batch runs one padded prefill (mamba2: the ssd
-kernel on the card) and copies each row's cache leaves into its slot; a
-decode step runs the model's `decode_step` over every slot and updates the
-cache in place. There is no prefix cache, copy-on-write, preemption, chunked
-prefill or speculative decoding on this layout (the JAX package refuses the
-last two there for mamba2 too). The port serves it for the mamba2 family
-only: the transformer's dense decode, and with it the dense chunk branch,
-and the data-parallel mesh are refused at construction with the ROADMAP item
-that will bring them (Queue 1 items 4.3 and 9).
+`cache_spec`: per-layer {conv, ssm} states for mamba2, (max_seq, K, H) KV
+stripes for the transformer. An admission batch runs one padded prefill
+(mamba2: the ssd kernel on the card; transformer: the flash kernel) and
+copies each row's cache leaves into its slot, the transformer's written
+positions at the head of the stripe and zeros after them; a decode step runs
+the model's `decode_step` over every slot (transformer: plain decode
+attention over the stripe, as in the JAX package) and updates the cache in
+place. There is no prefix cache, copy-on-write, preemption or speculative
+decoding on this layout, and no chunked prefill for mamba2 (the JAX package
+refuses those two with ValueError). The data-parallel mesh is not ported
+yet and is refused at construction (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -67,7 +73,7 @@ from repro_torch.config import ModelConfig, RuntimeConfig
 from repro_torch.kernels.paged_attention.ops import (
     check_shapes as check_paged_shapes, paged_attention_uses_fallback)
 from repro_torch.models import get_model
-from repro_torch.models.transformer import (paged_block_bytes,
+from repro_torch.models.transformer import (dequant_cache, paged_block_bytes,
                                             quantize_kv_for_cache)
 from repro_torch.serving.block_pool import BlockPool, PrefixCache
 from repro_torch.serving.protocol import (EngineConfig, EngineStats,
@@ -102,13 +108,15 @@ class Request:
     # saved token sequence (exact KV positions 0..len-1) while preempted
     resume_row: Optional[np.ndarray] = None
     # chunked-prefill progress while WAITING (cleared on admission/release):
-    # the bucket-padded prompt row, how many positions are prefilled, and the
-    # parked block chain holding them
+    # the bucket-padded prompt row, how many positions are prefilled, and
+    # where they live: a parked block chain (paged) or a reserved slot
+    # stripe (dense)
     chunk_row: Optional[np.ndarray] = None
     chunk_done: int = 0
     chunk_blocks: List[int] = dataclasses.field(default_factory=list)
     chunk_cached: int = 0                  # real prompt tokens served from cache
     chunk_hit: bool = False
+    chunk_slot: Optional[int] = None       # dense: the reserved slot stripe
 
 
 class VirtualClock:
@@ -165,9 +173,7 @@ def refuse_unported(config: EngineConfig, mesh=None):
 def resolve_layout(cfg: ModelConfig, config: EngineConfig):
     """-> (the KV layout `config` resolves to for `cfg`, its prefill window
     rounded up to whole blocks on the paged layout, or None). Raises
-    ValueError where the JAX package's engine does, and
-    NotImplementedError, naming the ROADMAP item, for a dense layout on a
-    family other than mamba2. Reads no weights."""
+    ValueError where the JAX package's engine does. Reads no weights."""
     if config.kv_layout not in ("auto", "paged", "dense"):
         raise ValueError(f"unknown kv_layout {config.kv_layout!r}; "
                          "expected 'auto', 'paged' or 'dense'")
@@ -198,17 +204,6 @@ def resolve_layout(cfg: ModelConfig, config: EngineConfig):
                 "staged in leased pool blocks")
         if sd.k < 0 or any(x < 0 for x in sd.k_ladder):
             raise ValueError("spec_decode: draft lengths must be >= 0")
-    if kv_layout == "dense" and cfg.family != "mamba2":
-        if chunk is not None:
-            raise NotImplementedError(
-                "prefill_chunk with kv_layout='dense': the dense chunk branch "
-                "of ROADMAP Queue 1 item 4.1 comes with the transformer's "
-                "dense decode, which is not ported yet (ROADMAP Queue 1 item "
-                "4.3)")
-        raise NotImplementedError(
-            f"kv_layout='dense' serves the mamba2 family only; the dense "
-            f"decode of family {cfg.family!r} is not ported yet (ROADMAP "
-            "Queue 1 item 4.3)")
     return kv_layout, chunk
 
 
@@ -295,6 +290,7 @@ class ServingEngine:
         self.draft_variant = sd.draft_variant if sd is not None else ""
         self._spec_leases: List[List[int]] = [[] for _ in range(max_batch)]
         self._prefer_prefill = True      # alternation flag: prefill <-> decode
+        self._chunk_slots: set = set()   # dense: slots reserved by parked chunks
         # telemetry
         self.tokens_emitted = 0
         self.prefill_tokens_total = 0
@@ -536,7 +532,10 @@ class ServingEngine:
     # -- admission ----------------------------------------------------------
 
     def _free_slots(self) -> List[int]:
-        return [i for i, s in enumerate(self.slots) if s is None]
+        """Slots open to an admission: empty and not reserved by a parked
+        dense chunk."""
+        return [i for i, s in enumerate(self.slots)
+                if s is None and i not in self._chunk_slots]
 
     def _prefill_work(self) -> Optional[Dict]:
         """One unit of pending prefill work for the queue head — a resume
@@ -582,6 +581,8 @@ class ServingEngine:
             return self._admit_batch_paged(free)
         reqs: List[Request] = []
         for req in self.scheduler.waiting:
+            if self._chunk_needed(req):
+                break               # chunked admissions run one window a step
             reqs.append(req)
             if len(reqs) == len(free):
                 break
@@ -599,13 +600,26 @@ class ServingEngine:
         lengths_n = lengths_n.cpu().numpy()
         for i, (req, slot) in enumerate(zip(reqs, free)):
             for key, leaf in self.cache.items():
-                leaf[:, slot] = entry[key][:, i].to(leaf.dtype)
+                self._write_slot(leaf[:, slot], entry[key][:, i])
             self.lengths[slot] = int(lengths_n[i])
             self._place(req, slot, toks[i])
             tok = self._sample(logits[i:i + 1], req)
             self._emit(req, slot, int(tok[0]))
             self._slot_emit0[slot] = len(req.output)
         return reqs, sum(len(r.prompt) for r in reqs), 0
+
+    @staticmethod
+    def _write_slot(dst, src):
+        """Copy one row's cache leaf into its slot: whole for a state
+        (mamba2), or the S prefilled positions at the head of a (max_seq,
+        ...) KV stripe with zeros after them, as the JAX package's padded
+        prefill cache leaves it."""
+        if src.shape == dst.shape:
+            dst.copy_(src)
+            return
+        S = src.shape[1]
+        dst[:, :S] = src.to(dst.dtype)
+        dst[:, S:] = 0
 
     def _admit_batch_paged(self, free: List[int]):
         """Paged admission: look up each prompt's longest cached prefix chain,
@@ -713,6 +727,8 @@ class ServingEngine:
         b = _bucket(len(req.prompt), self.prompt_buckets)
         if b <= self.prefill_chunk:
             return False
+        if self.kv_layout != "paged":
+            return True
         row = self._padded_row(req.prompt, b)
         hit = self.prefix_cache.lookup(row, salt=self.variant_name)
         cached = hit.cached_len if hit else 0
@@ -721,13 +737,16 @@ class ServingEngine:
         return b - cached > self.prefill_chunk
 
     def _chunk_init(self, req: Request):
-        """First window of a chunked prefill: bucket the prompt and adopt the
-        longest cached prefix chain, one ref per block (as an admission), so
-        eviction cannot free the chain while it is extended."""
+        """First window of a chunked prefill: bucket the prompt and (paged)
+        adopt the longest cached prefix chain, one ref per block (as an
+        admission), so eviction cannot free the chain while it is
+        extended."""
         b = _bucket(len(req.prompt), self.prompt_buckets)
         row = self._padded_row(req.prompt, b)
         cached_len = 0
-        hit = self.prefix_cache.lookup(row, salt=self.variant_name)
+        hit = None
+        if self.kv_layout == "paged":
+            hit = self.prefix_cache.lookup(row, salt=self.variant_name)
         if hit is not None:
             cached_len = hit.cached_len
             for bid in hit.blocks:
@@ -787,9 +806,14 @@ class ServingEngine:
         return logits
 
     def _chunk_step(self, req: Request, free: List[int]) -> Optional[Dict]:
-        """Advance `req`'s chunked prefill by one window (paged layout; the
-        dense branch comes with the transformer's dense decode). Returns
-        the step-log record, or None when the window cannot run yet."""
+        """Advance `req`'s chunked prefill by one window. Returns the
+        step-log record, or None when the window cannot run yet."""
+        if self.kv_layout == "paged":
+            return self._chunk_step_paged(req, free)
+        return self._chunk_step_dense(req, free)
+
+    def _chunk_step_paged(self, req: Request,
+                          free: List[int]) -> Optional[Dict]:
         bs = self.block_size
         if req.chunk_row is None:
             self._chunk_init(req)
@@ -849,21 +873,102 @@ class ServingEngine:
         return {"kind": "prefill", "tokens": 1, "charged": charged,
                 "cached": cached, "rids": [req.rid]}
 
+    def _chunk_step_dense(self, req: Request,
+                          free: List[int]) -> Optional[Dict]:
+        """One window into the slot stripe the request reserves at its first
+        window; the final window admits it in that slot."""
+        if req.chunk_row is None:
+            if not free:
+                return None              # needs a slot stripe to reserve
+            self._chunk_init(req)
+            req.chunk_slot = free[0]
+            self._chunk_slots.add(free[0])
+        slot = req.chunk_slot
+        row = req.chunk_row
+        b = len(row)
+        start = req.chunk_done
+        end = min(start + self.prefill_chunk, b)
+        final = end >= b
+        nwin = end - start
+        logits = None
+        if start == 0:
+            # cold first window (never final, see _chunk_window): the stock
+            # prefill over [0, end), its KV copied into the reserved stripe
+            W = _pow2(end, self.max_seq)
+            toks = np.zeros((self.max_batch, W), np.int32)
+            toks[0, :end] = row[:end]
+            _, entry, _ = self.model.prefill(self.params, self._batch(toks),
+                                             self.rcfg)
+            for key, leaf in self.cache.items():
+                leaf[:, slot, :end] = entry[key][:, 0, :end].to(leaf.dtype)
+        else:
+            # the prefix view is cache[:, :, :p_len] over every slot, so the
+            # window rides in batch row `slot` to attend the reserved stripe
+            p_len = _pow2(start, self.max_seq)
+            W = _pow2(nwin, b)
+            toks = np.zeros((self.max_batch, W), np.int32)
+            toks[slot, W - nwin:] = row[start:end]
+            plens = np.zeros((self.max_batch,), np.int32)
+            plens[slot] = start
+            batch = self._batch(toks)
+            batch["positions"] = torch.arange(end - W, end, dtype=torch.int32,
+                                              device=self.device)
+            # the JAX package's `prefill_dense_chunk_impl`: the first p_len
+            # positions of every stripe, dequantized
+            k_pre, v_pre = dequant_cache({key: leaf[:, :, :p_len]
+                                          for key, leaf in self.cache.items()})
+            logits, (k_win, v_win) = self.model.prefill_chunk(
+                self.params, batch, k_pre, v_pre,
+                torch.as_tensor(plens, device=self.device), self.rcfg,
+                need_logits=final)
+            entry = quantize_kv_for_cache("k_scale" in self.cache, k_win,
+                                          v_win)
+            for key, leaf in self.cache.items():
+                leaf[:, slot, start:end] = entry[key][:, slot, W - nwin:].to(
+                    leaf.dtype)
+        req.chunk_done = end
+        # the stripe's fill mark moves to the next window's first position:
+        # a dense decode step writes its KV at lengths[i] for every row, this
+        # stripe's too, and the next window overwrites that position
+        self.lengths[slot] = end
+        pad = b - min(len(req.prompt), b)
+        charged = max(0, end - max(start, pad))
+        if not final:
+            self.scheduler.note_chunk_step(req)
+            return {"kind": "prefill_chunk", "tokens": 0, "charged": charged,
+                    "cached": 0, "rids": [req.rid]}
+        charged += max(0, len(req.prompt) - b)   # no free truncation discount
+        self.scheduler.note_admitted(req, self.clock())
+        self._chunk_slots.discard(slot)
+        self._place(req, slot, row)
+        tok = self._sample(logits[slot:slot + 1], req)
+        self._emit(req, slot, int(tok[0]))
+        self._slot_emit0[slot] = len(req.output)
+        self._clear_chunk(req)
+        return {"kind": "prefill", "tokens": 1, "charged": charged,
+                "cached": 0, "rids": [req.rid]}
+
     def _clear_chunk(self, req: Request):
         req.chunk_row = None
         req.chunk_done = 0
         req.chunk_blocks = []
         req.chunk_cached = 0
         req.chunk_hit = False
+        req.chunk_slot = None
 
     def _release_chunk(self, req: Request):
         """Drop a parked partial prefill (cancel, expiry, hot swap, pool
-        pressure): the request's block refs go, and its progress survives as
-        ordinary prefix-cache entries until eviction needs the blocks."""
+        pressure). Paged: the request's block refs go, and its progress
+        survives as ordinary prefix-cache entries until eviction needs the
+        blocks. Dense: the reserved slot stripe is returned."""
         if req.chunk_row is None:
             return
-        for bid in req.chunk_blocks:
-            self.block_pool.decref(bid)
+        if self.kv_layout == "paged":
+            for bid in req.chunk_blocks:
+                self.block_pool.decref(bid)
+        elif req.chunk_slot is not None:
+            self._chunk_slots.discard(req.chunk_slot)
+            self.lengths[req.chunk_slot] = 0
         self._clear_chunk(req)
         self.scheduler.note_chunk_dropped(req)
 
@@ -1004,13 +1109,7 @@ class ServingEngine:
             return g.reshape(g.shape[0], g.shape[1], nbp * self.block_size,
                              *g.shape[4:])
 
-        k_pre, v_pre = view("k"), view("v")
-        if "k_scale" in self.pool:
-            k_pre = (k_pre.to(torch.float32)
-                     * view("k_scale").unsqueeze(-1)).to(torch.bfloat16)
-            v_pre = (v_pre.to(torch.float32)
-                     * view("v_scale").unsqueeze(-1)).to(torch.bfloat16)
-        return k_pre, v_pre
+        return dequant_cache({key: view(key) for key in self.pool})
 
     def _prefill_cold(self, compute, b: int):
         """No cached prefix anywhere in the batch: run the stock full-row

@@ -120,18 +120,26 @@ def tiny():
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    # chunked prefill and speculative decoding are ported for the paged
-    # layout; what stays refused on the dense one
-    pytest.param({"prefill_chunk": 32, "kv_layout": "dense"},
-                 NotImplementedError, "ROADMAP Queue 1 item 4.1", id="kw0"),
+    # the transformer's dense layout is served, with chunked prefill (its
+    # window unrounded) as in the JAX package; speculative decoding on it is
+    # the JAX package's ValueError, the data-parallel mesh is not ported
+    pytest.param({"prefill_chunk": 30, "kv_layout": "dense"}, None, None,
+                 id="kw0"),
     pytest.param({"spec_decode": SpecDecodeConfig(), "kv_layout": "dense"},
                  ValueError, "requires the paged KV layout", id="kw1"),
-    pytest.param({"kv_layout": "dense"}, NotImplementedError, "ROADMAP",
-                 id="kw2"),
+    pytest.param({"kv_layout": "dense"}, None, None, id="kw2"),
     pytest.param({"mesh": object()}, NotImplementedError, "ROADMAP",
                  id="kw3")])
 def test_engine_refuses_unported_options(tiny, kw, exc, match):
     cfg, params = tiny
+    if exc is None:
+        eng = ServingEngine(cfg, params, RuntimeConfig(), device="cpu", **kw)
+        assert eng.kv_layout == "dense"
+        assert eng.prefill_chunk == kw.get("prefill_chunk")
+        L, K, H = cfg.num_layers, cfg.num_kv_heads, cfg.resolved_head_dim
+        assert tuple(eng.cache["k"].shape) == (L, eng.max_batch,
+                                               eng.max_seq, K, H)
+        return
     with pytest.raises(exc, match=match):
         ServingEngine(cfg, params, RuntimeConfig(), device="cpu", **kw)
 

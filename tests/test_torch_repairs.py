@@ -10,13 +10,28 @@
     draws its trees on a CPU generator and moves them. The card is stood in
     for by the "meta" device, which keeps shapes and no values: the draw
     must consume the CPU generator exactly as a CPU draw does.
-  * The engine's and the executor's refusals name the ROADMAP items 4.1,
-    4.2 and 4.3.
+  * The plain decode and chunked attention scale a bf16 query as the JAX
+    package does: q / sqrt(H) in q's dtype, by the divisor rounded to it,
+    then f32. The scaled query is held to the reference's bit for bit; the
+    outputs to ATTN_ULPS bf16 step of the reference's (the step at
+    ATTN_FLOOR for outputs below it), with at most
+    ATTN_FLIP_FRAC of them differing at all: the two frameworks' f32 exp and
+    sum orders differ in the last place (torch.softmax and jax.nn.softmax
+    on equal f32 logits differ in about half the probabilities by one f32
+    step), which moves a bf16 rounding in about one output in 10^4. Before
+    the repair about 40% of the outputs differed (6905 of 14336 in the
+    decode case without window or softcap).
+  * The engine and the executor serve the transformer's dense layout, with
+    and without chunked prefill, as the reference does; speculative decoding
+    on it, and chunked prefill over mamba2, stay the reference's
+    ValueError.
   * A CUDA paged engine checks, when it is built, that the paged decode
     kernel takes its block size (a multiple of 16 up to 128), its query
     heads per kv head (at most 8) and its head dim; a CPU engine, whose
     decode reads through the plain version, takes any block size.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +39,7 @@ import torch
 
 from repro.kernels.topk_sim import ops as ref_ops
 from repro.kernels.topk_sim import topk_sim as ref_kernel
+from repro.models import layers as RL
 
 from repro_torch.common.hardware import ORIN_AGX
 from repro_torch.common.registry import get_arch
@@ -36,11 +52,15 @@ from repro_torch.core.executor import PAPER_MODELS
 from repro_torch.core.tool_select import ToolSelector
 from repro_torch.kernels.topk_sim import ops
 from repro_torch.kernels.topk_sim.ref import sim_scores_ref
+from repro_torch.models import layers as PL
 from repro_torch.serving import (EngineConfig, ServingEngine,
                                  SpecDecodeConfig)
 from repro_torch.serving import engine as engine_mod
 
 SCORE_TOL = 1e-5
+ATTN_ULPS = 1                   # bf16 steps of the reference's output
+ATTN_FLIP_FRAC = 1e-3           # of the outputs that may differ at all
+ATTN_FLOOR = 2.0 ** -10         # |output| below which the step is fixed
 
 
 def _unit(a):
@@ -97,33 +117,109 @@ def test_selector_on_cpu_uses_the_seeded_cpu_encoder():
              else pytest.fail("encoder differs"), sel.encoder_params, want)
 
 
+def _bf16(g, shape, scale=1.0):
+    a = (g.standard_normal(shape) * scale).astype(np.float32)
+    return jnp.asarray(a).astype(jnp.bfloat16), torch.tensor(a).bfloat16()
+
+
+def _attn_close(want, got):
+    """-> outputs that differ; each within ATTN_ULPS bf16 steps."""
+    w = np.asarray(want.astype(jnp.float32))
+    g = got.float().numpy()
+    assert w.shape == g.shape
+    # a bf16 step at |w|: 2^(exponent - 7), taken at |w| >= ATTN_FLOOR: an
+    # output near 0 is a cancelling sum, whose f32 error is set by its terms
+    step = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), ATTN_FLOOR))) - 7)
+    assert (np.abs(w - g) <= ATTN_ULPS * step).all()
+    n = int((w != g).sum())
+    assert n <= ATTN_FLIP_FRAC * w.size, (n, w.size)
+    return n
+
+
+@pytest.mark.parametrize("kw", [{}, {"window": 8}, {"cap": 5.0}],
+                         ids=["plain", "window", "softcap"])
+def test_decode_attention_scales_bf16_q_as_reference(kw):
+    B, S, K, G, H = 4, 64, 4, 7, 128
+    g = np.random.default_rng(0)
+    qj, qt = _bf16(g, (B, 1, K * G, H), 3.0)
+    kj, kt = _bf16(g, (B, S, K, H))
+    vj, vt = _bf16(g, (B, S, K, H))
+    lens = np.array([64, 40, 17, 9], np.int32)
+    qr = (qj.reshape(B, K, G, H) / jnp.sqrt(H)).astype(jnp.float32)
+    assert np.array_equal(np.asarray(qr),
+                          PL._scale_q(qt.reshape(B, K, G, H), H).numpy())
+    want = RL.decode_attention(qj, kj, vj, jnp.asarray(lens), **kw)
+    got = PL.decode_attention(qt, kt, vt, torch.tensor(lens), **kw)
+    n = _attn_close(want, got)
+    print(f"decode {kw}: {n} of {got.numel()} outputs differ")
+
+
+def test_chunked_attention_scales_bf16_q_as_reference():
+    """Two KV chunks of 512: the carried softmax statistics included."""
+    B, S, N, K, H = 2, 1024, 4, 2, 32
+    g = np.random.default_rng(1)
+    qj, qt = _bf16(g, (B, S, N, H), 3.0)
+    kj, kt = _bf16(g, (B, S, K, H))
+    vj, vt = _bf16(g, (B, S, K, H))
+    qr = (qj.swapaxes(1, 2) / jnp.sqrt(H)).astype(jnp.float32)
+    assert np.array_equal(np.asarray(qr),
+                          PL._scale_q(qt.transpose(1, 2), H).numpy())
+    assert not np.array_equal(                  # what the repair changed
+        np.asarray(qr), (qt.transpose(1, 2).float() / math.sqrt(H)).numpy())
+    want = RL.chunked_attention(qj, kj, vj, chunk=512)
+    got = PL.chunked_attention(qt, kt, vt, chunk=512)
+    n = _attn_close(want, got)
+    print(f"chunked: {n} of {got.numel()} outputs differ")
+
+
+def _build(entry, config, arch="carboncall-qwen2-7b"):
+    if entry == "engine":
+        return ServingEngine(reduce_config(get_arch(arch)), None,
+                             RuntimeConfig(), config=config, device="cpu")
+    return EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX, arch=arch,
+                          config=config, device="cpu").engine
+
+
 @pytest.mark.parametrize("config,item", [
-    # chunked prefill on the dense layout waits for the transformer's dense
-    # decode; speculative decoding needs the paged layout (the JAX package's
-    # ValueError)
-    pytest.param(EngineConfig(prefill_chunk=32, kv_layout="dense"),
-                 (NotImplementedError, "Queue 1 item 4.1"),
+    # the items that refused these are done: the transformer's dense layout
+    # (item 4.3) and its chunk branch (item 4.1) are served, as the JAX
+    # package serves them; speculative decoding needs the paged layout (the
+    # JAX package's ValueError)
+    pytest.param(EngineConfig(prefill_chunk=30, kv_layout="dense"), None,
                  id="config0-Queue 1 item 4.1"),
     pytest.param(EngineConfig(spec_decode=SpecDecodeConfig(),
                               kv_layout="dense"),
                  (ValueError, "requires the paged KV layout"),
                  id="config1-Queue 1 item 4.2"),
-    pytest.param(EngineConfig(kv_layout="dense"),
-                 (NotImplementedError, "Queue 1 item 4.3"),
+    pytest.param(EngineConfig(kv_layout="dense"), None,
                  id="config2-Queue 1 item 4.3"),
 ])
 @pytest.mark.parametrize("entry", ["engine", "executor"])
 def test_refusals_name_the_roadmap_items(config, item, entry):
-    """Both entry points refuse before any weights are used, so the engine
-    gets none; the dense layout is refused for the transformer family."""
+    """What stays refused, both entry points refuse before any weights are
+    used, so the engine gets none; what the done items brought is served on
+    the dense layout, its chunk window unrounded."""
+    if item is None:
+        eng = _build(entry, config)
+        assert eng.kv_layout == "dense"
+        assert eng.prefill_chunk == config.prefill_chunk
+        assert set(eng.cache) == {"k", "v"}
+        return
     exc, match = item
     with pytest.raises(exc, match=match):
-        if entry == "engine":
-            ServingEngine(reduce_config(get_arch("carboncall-qwen2-7b")),
-                          None, RuntimeConfig(), config=config, device="cpu")
-        else:
-            EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX,
-                           config=config, device="cpu")
+        _build(entry, config)
+
+
+@pytest.mark.parametrize("entry", ["engine", "executor"])
+def test_mamba2_refuses_chunked_prefill_as_reference(entry):
+    """Chunked prefill over mamba2 is the JAX package's ValueError, from the
+    engine and from the executor, which otherwise serves mamba2 on the dense
+    layout."""
+    with pytest.raises(ValueError, match="chunked prefill contract"):
+        _build(entry, EngineConfig(prefill_chunk=32), arch="mamba2-370m")
+    assert _build(entry, EngineConfig()).kv_layout == "paged"
+    assert _build(entry, EngineConfig(), arch="mamba2-370m").kv_layout \
+        == "dense"
 
 
 @pytest.mark.parametrize("reduced", [False, True])

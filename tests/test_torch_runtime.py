@@ -6,9 +6,9 @@
   * `run_week(backend="sim")` over a full week, for the carboncall policy and
     a baseline, run by both packages in this process: the query records are
     equal field for field (the analytic backend is pure Python and numpy);
-  * `run_week(backend="engine")` on the reduced carboncall-qwen2-7b over a
-    carbon-intensity ramp that makes the switcher swap Q8 -> Q4. The
-    reference runs in a subprocess (`sys.executable -c`, JAX_PLATFORMS=cpu):
+  * `run_week(backend="engine")` on the reduced carboncall-qwen2-7b (paged)
+    and on the reduced mamba2-370m (dense) over a carbon-intensity ramp that
+    makes the switcher swap Q8 -> Q4. The reference runs in a subprocess (`sys.executable -c`, JAX_PLATFORMS=cpu):
     building a reference `ServingEngine` in this process would change what
     later tests in the same worker see. It writes its `init_encoder(0)`
     weights and its records as files; the port runs on the CPU with those
@@ -248,6 +248,7 @@ rt = C.CarbonCallRuntime(
                                          ORIN_AGX, seed=0),
     policy=C.POLICIES["carboncall"], modes=C.ORIN_MODES, catalog_size=240,
     seed=0)
+rt.use_backend("engine", arch=spec["arch"])
 res = C.run_week(rt, FunctionCallWorkload(cat, seed=3), np.array(spec["ci"]),
                  queries_per_hour=spec["qph"], seed=0, backend="engine")
 ex = rt.executor
@@ -263,12 +264,11 @@ json.dump({
 """
 
 
-@pytest.fixture(scope="module")
-def engine_reference(tmp_path_factory):
+def _engine_reference(tmp_path_factory, arch):
     out = tmp_path_factory.mktemp("ref_runtime")
     spec_path = out / "spec.json"
     spec_path.write_text(json.dumps({"profile": PROFILE, "qph": ENGINE_QPH,
-                                     "ci": _ramp().tolist()}))
+                                     "ci": _ramp().tolist(), "arch": arch}))
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
@@ -291,12 +291,23 @@ def engine_reference(tmp_path_factory):
     return data, params_from_numpy(enc, "cpu")
 
 
+@pytest.fixture(scope="module")
+def engine_reference(tmp_path_factory):
+    return _engine_reference(tmp_path_factory, "carboncall-qwen2-7b")
+
+
+@pytest.fixture(scope="module")
+def engine_reference_mamba2(tmp_path_factory):
+    return _engine_reference(tmp_path_factory, "mamba2-370m")
+
+
 def _rel_close(a, b):
     return abs(a - b) <= ENGINE_REL_TOL * max(abs(a), abs(b), 1e-30)
 
 
-def test_run_week_engine_matches_reference(engine_reference):
-    data, encoder = engine_reference
+def _engine_week(data, encoder, arch):
+    """The port's engine-backed week on `arch`, held to the reference's
+    records, swap count and step log. Returns the executor."""
     want = data["records"]
     assert data["swap_count"] >= 1              # the ramp makes it swap
     assert {r["variant"] for r in want} == {"q8", "q4"}
@@ -308,7 +319,7 @@ def test_run_week_engine_matches_reference(engine_reference):
                                               ORIN_AGX, seed=0),
         policy=PC.POLICIES["carboncall"], modes=PC.ORIN_MODES,
         catalog_size=240, seed=0)
-    rt.use_backend("engine", device="cpu")
+    rt.use_backend("engine", arch=arch, device="cpu")
     ex = rt.executor
     assert isinstance(ex, PC.EngineExecutor) and ex.engine.device.type == "cpu"
     requests, submit = [], ex.engine.submit
@@ -339,8 +350,24 @@ def test_run_week_engine_matches_reference(engine_reference):
     assert all(_rel_close(s["dt"], w[6])
                for s, w in zip(ex.engine.step_log, data["log"]))
     assert {r["mode_idx"] for r in got} >= {0, 4}   # clean and dirty modes
-    assert ex.engine.kernel_fallbacks > 0           # plain versions on CPU
     assert check_invariants(ex.engine, requests) == []
+    return ex
+
+
+def test_run_week_engine_matches_reference(engine_reference):
+    ex = _engine_week(*engine_reference, "carboncall-qwen2-7b")
+    assert ex.engine.kv_layout == "paged"
+    assert ex.engine.kernel_fallbacks > 0           # plain versions on CPU
+
+
+def test_run_week_engine_over_mamba2_matches_reference(
+        engine_reference_mamba2):
+    """The runtime over mamba2 on the dense layout: priced from the same
+    profile, so only the step log's model changes."""
+    ex = _engine_week(*engine_reference_mamba2, "mamba2-370m")
+    assert ex.cfg.family == "mamba2" and ex.engine.kv_layout == "dense"
+    assert {s["kind"] for s in ex.engine.step_log} == {"prefill", "decode"}
+    assert ex.engine.kernel_fallbacks == 0          # no paged reads
 
 
 # ---------------------------------------------------------------------------

@@ -436,7 +436,8 @@ def _live(eng):
 
 class _Recorder:
     """Hooks on one port engine: every decision's logits and margin, each
-    emission's logits row, and the free blocks after each step. With
+    emission's logits row, and the free blocks after each step (0 on the
+    dense layout). With
     `force` (the reference's tokens by rid; both engines number requests
     alike) and `calls` (its argmax arrays in call order) every sample,
     draft round and verify takes the reference's outcome, so both engines
@@ -493,7 +494,8 @@ class _Recorder:
                 return step()
             finally:
                 self.margins.append(self.step_margin)
-                self.free.append(int(eng.block_pool.num_free))
+                self.free.append(int(eng.block_pool.num_free)
+                                 if eng.kv_layout == "paged" else 0)
 
         eng._sample, eng._emit, eng._greedy = rec_sample, rec_emit, rec_greedy
         eng._spec_step, eng.step = rec_spec_step, rec_step
@@ -858,9 +860,11 @@ def test_configuration_checks(port_variants):
     with pytest.raises(ValueError, match="chunked prefill contract"):
         ServingEngine(reduce_config(get_arch("mamba2-370m")), None,
                       RuntimeConfig(), prefill_chunk=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4.3"):
-        ServingEngine(CFG, None, RuntimeConfig(), kv_layout="dense",
-                      prefill_chunk=16, device="cpu")
+    # the transformer's dense layout takes chunked prefill, its window
+    # unrounded (tests/test_chunked.py's dense case)
+    eng = ServingEngine(CFG, None, RuntimeConfig(), kv_layout="dense",
+                        prefill_chunk=10, device="cpu")
+    assert eng.kv_layout == "dense" and eng.prefill_chunk == 10
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(CFG, None, RuntimeConfig(), kv_layout="dense",
                       spec_decode=SpecDecodeConfig(), device="cpu")
