@@ -109,8 +109,25 @@ Phases, each raising on its first fault (the script then exits non-zero):
                host seconds, the mode and variant mix; ssd_bshp (one launch
                a layer a prefill step), q8_matmul, q4_matmul and sim_scores
                must launch, with a live Q8 -> Q4 swap.
+ 10. serve_paper_models — full-width hermes2-pro-8b, then llama3.1-8b (the
+               paper's other two models: no qkv bias, 32 query heads over 8
+               KV heads), each drawn on the card from seed 0 and freed
+               before the next: phase 4's two paged paths (bf16 KV with a
+               Q8 -> Q4 swap, int8 KV on Q8), then phase 8's dense path on
+               bf16 KV, teacher-forced onto the paged engine's tokens with
+               every Q8 row within ENGINE_LOGIT_REL and the paged kernel
+               not launched; each path with its counters set to 0 just
+               before it and read just after, no step falling back and the
+               invariant sweep clean. Then a decode step at batch 4 for Q8
+               and Q4 on bf16 KV (CUDA events, busy time, idle share and
+               launches a step by the profiler).
+ 11. runtime_paper_models — phase 6's loop over each of the two at full
+               width, its steps priced from its own profile: a live Q8 -> Q4
+               swap, a low-power mode, the four model kernels and sim_scores
+               launched, each model a main path of its own.
 The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
-carboncall-qwen2-7b's five (K, N) for M in QM_ROWS (both regimes and their
+carboncall-qwen2-7b's five (K, N) and hermes2-pro-8b / llama3.1-8b's six
+for M in QM_ROWS (both regimes and their
 edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
 twice with bit-identical results; it includes sim_scores, at the runtime's index
 (N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 2, 3 and 8 sentences, and
@@ -124,13 +141,16 @@ held to 0.05 on y and the final state with bit-identical repeats; decode attenti
 bf16 and int8 pools, within PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row,
 PAGED_ROW_TOL at the planned split, one split and nb splits, with
 bit-identical repeats, timed by device time against its byte bound and the
-gathered-SDPA yardstick (two calls); and prefill attention, whose two
+gathered-SDPA yardstick (two calls), and its bf16 cases over the seeds
+PAGED_F64_SEEDS against their f64 evaluation correctly rounded to bf16 (the
+kernel may miss no more outputs than the plain version, none by over one
+bf16 ulp); and prefill attention, whose two
 tensor-core products are first checked alone on one tile (PRODUCT_TOL),
 then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
 bit-identical repeats,
 timed by device time against the faster of two SDPA calls.
 The line before the last is the `kernels` JSON record (launches summed over
-the main paths of phases 4 to 9); the last line is
+the main paths of phases 4 to 11); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -152,6 +172,10 @@ QM_SHAPES = [(3584, 3584), (3584, 512), (3584, 18944), (18944, 3584),
              (3584, 152064)]    # (K, N): wq/wo, wk/wv, wg/wu, down, lm_head
 # decode rows (1-16, the regime's edge), prefill rows (17 up)
 QM_ROWS = (1, 4, 8, 16, 17, 64, 512)
+# hermes2-pro-8b and llama3.1-8b: wq/wo, wk/wv, wg/wu, down, the two heads.
+# 128288 = 2004 x 64 + 32: its last 64-column tile is half full
+QM_PAPER_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
+                   (4096, 128288), (4096, 128256)]
 QM_MAMBA_SHAPES = [(1024, 2048), (1024, 128), (1024, 32),
                    (2048, 1024)]  # mamba2-370m: wz/wx, wb/wc, wdt, out_proj
 QM_MAMBA_ROWS = (4, 512, 2048)  # the serve path's decode and two admissions
@@ -167,6 +191,17 @@ PAGED_INT8_TOL = 1e-2
 # the absolute tolerances alone would miss a dropped pool block: each row
 # (b, query head) is also held to its RMS error over its RMS value.
 PAGED_ROW_TOL = 0.02
+# The bf16 cases are also held, over these seeds, to their f64 evaluation
+# correctly rounded to bf16 (check_paged_f64): the kernel may round no more
+# outputs otherwise than the plain version, and none by over one bf16 ulp
+# of the f64 value where f32 arithmetic can resolve it: where the output's
+# terms sum_j p_j v_j cancel, an f32 evaluation errs by some f32 ulps of
+# sum_j p_j |v_j|, many bf16 ulps of a small result (the plain version by
+# up to 17.7, PERF.md §6, PR 27). At a condition sum_j p_j |v_j| /
+# |sum_j p_j v_j| of at most PAGED_F64_COND, 128 f32 ulps of the terms
+# (2^-17 of them) stay within half a bf16 ulp (at least 2^-9) of the result.
+PAGED_F64_SEEDS = (2, 3, 4, 5, 6)
+PAGED_F64_COND = 256
 # (label, B, K, G, H, bs, nb, lengths, window, cap), each with bf16 and int8
 # pools. A row of length 1 is the dead row, parked on the scratch block 0.
 PAGED_SERVE = (4, 4, 7, 128, 16, 16, [1, 129, 200, 256])
@@ -200,7 +235,9 @@ FLASH_CASES = [("serve", 4, S, S, 28, 4, 128, True, 0, 0.0)
     ("q_offset", 2, 100, 228, 28, 4, 128, True, 0, 0.0),
     ("non-causal", 2, 77, 300, 28, 4, 128, False, 0, 0.0),
     ("H64", 2, 256, 256, 8, 2, 64, True, 0, 0.0),
-    ("H256", 2, 200, 200, 8, 2, 256, True, 0, 0.0),
+    ("H256", 2, 200, 200, 8, 2, 256, True, 0, 0.0)] + [
+    # hermes2-pro-8b / llama3.1-8b: 32 query heads over 8 KV heads (G 4)
+    ("llama", 4, S, S, 32, 8, 128, True, 0, 0.0) for S in (64, 256)] + [
     ("long", 1, 2048, 2048, 28, 4, 128, True, 0, 0.0),
     ("long", 1, 4096, 4096, 28, 4, 128, True, 0, 0.0)]
 FLASH_PRODUCT_HEADS = (16, 64, 112, 128, 256)   # every head_dim in configs/
@@ -274,6 +311,9 @@ DENSE_KERNELS = ("q8_matmul", "q4_matmul", "flash_attention")
 # at these stripe widths
 DENSE_SWAP_AT = 12
 DENSE_STEP_SEQS = (256, 2048)
+# serve_paper_models / runtime_paper_models: the paper's other two models,
+# each also the name of its profile in PAPER_MODELS
+PAPER_ARCHS = ("hermes2-pro-8b", "llama3.1-8b")
 # sources whose every kernel must show tensor-core instructions and no spill
 TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention", "paged_attention",
                        "ssd")
@@ -407,10 +447,11 @@ class KernelRecord:
 
 def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
     """q8 and q4 against their plain versions at carboncall-qwen2-7b's five
-    (K, N) for M in QM_ROWS (decode rows, both regimes' edges, prefill rows)
-    and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS (the serve
-    path's decode and two admissions); every case is launched twice and the
-    two results must be equal bit for bit. The kernels line reports the
+    (K, N) and hermes2-pro-8b / llama3.1-8b's six for M in QM_ROWS (decode
+    rows, both regimes' edges, prefill rows) and at mamba2-370m's four
+    (K, N) for M in QM_MAMBA_ROWS (the serve path's decode and two
+    admissions); every case is launched twice and the two results must be
+    equal bit for bit. The kernels line reports the
     M = `timed_m` sums over the five qwen2 shapes; one log line per format
     gives the M = `prefill_m` sums beside them."""
     import torch
@@ -421,6 +462,8 @@ def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
         rec = records[f"{fmt}_matmul"]
         sums = {M: [0.0, 0.0, 0.0, 0.0] for M in (timed_m, prefill_m)}
         for label, shapes, rows in (("qwen2", QM_SHAPES, QM_ROWS),
+                                    ("hermes/llama", QM_PAPER_SHAPES,
+                                     QM_ROWS),
                                     ("mamba2", QM_MAMBA_SHAPES,
                                      QM_MAMBA_ROWS)):
             for K, N in shapes:
@@ -650,6 +693,122 @@ def check_paged(records, baselines=()):
     torch.cuda.empty_cache()
 
 
+def _bf16_rounded(x):
+    """f64 values correctly rounded to bf16 (to nearest, ties to even):
+    through f32, with an f32 result that sits on a bf16 midpoint without
+    being x moved one f32 ulp toward x first, so the two roundings never
+    round twice the wrong way."""
+    import torch
+    f = x.to(torch.float32)
+    mid = ((f.view(torch.int32) & 0xFFFF) == 0x8000) & (f.double() != x)
+    toward = torch.where(x > f.double(), math.inf, -math.inf).to(f.dtype)
+    return torch.where(mid, torch.nextafter(f, toward), f).to(torch.bfloat16)
+
+
+def _bf16_ulps(got, exact):
+    """|got - exact| in bf16 ulps of the f64 value `exact`."""
+    import torch
+    _, ex = torch.frexp(exact)
+    return (got.double() - exact).abs() / torch.ldexp(
+        torch.ones_like(exact), ex - 8)
+
+
+def _paged_f64(q, kp, vp, bt, lens, window, cap):
+    """Decode attention over a bf16 pool in f64: the plain version's
+    arithmetic (q scaled in bf16 as the JAX package scales it, then logits,
+    softcap, mask, softmax and the V product) with every step after the
+    scaling in torch.float64. Returns the (B, K, G, H) f64 outputs and
+    their terms' magnitudes, sum_j p_j |v_j|."""
+    import torch
+    from repro_torch.kernels.paged_attention.ref import gather_pool
+    from repro_torch.models.layers import _scale_q
+    B, K, G, H = q.shape
+    qr = _scale_q(q, H).double()
+    k = gather_pool(kp, bt).double()
+    v = gather_pool(vp, bt).double()
+    s = torch.einsum("bkgh,bskh->bkgs", qr, k)
+    if cap > 0.0:
+        s = torch.tanh(s / cap) * cap
+    pos = torch.arange(k.shape[1], device=q.device)[None, :]
+    valid = pos < lens[:, None]
+    if window > 0:
+        valid &= pos > lens[:, None] - 1 - window
+    s = s.masked_fill(~valid[:, None, None, :], -math.inf)
+    p = torch.softmax(s, dim=-1)
+    return (torch.einsum("bkgs,bskh->bkgh", p, v),
+            torch.einsum("bkgs,bskh->bkgh", p, v.abs()))
+
+
+def check_paged_f64():
+    """The bf16 PAGED_CASES over the seeds PAGED_F64_SEEDS, kernel and plain
+    version each against the same inputs evaluated in f64 and correctly
+    rounded to bf16: the outputs each one rounds otherwise, and each one's
+    largest distance from the f64 value in bf16 ulps of it, over every
+    output and over the outputs whose condition (sum_j p_j |v_j| over
+    |sum_j p_j v_j|) is at most PAGED_F64_COND. Passes when, summed over
+    the seeds and cases, the kernel misses no more outputs than the plain
+    version, and no kernel output within that condition is more than one
+    bf16 ulp from its f64 value. A seed's inputs are drawn as check_paged
+    draws them (its int8 cases too, which are not evaluated here), so seed
+    3's are that check's."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops as pa
+    per_case = {}
+    for seed in PAGED_F64_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for i, (label, B, K, G, H, bs, nb, lengths, window, cap) in \
+                enumerate(PAGED_CASES):
+            for int8 in (False, True):
+                q, kp, vp, ks, vs, bt, lens = _paged_inputs(
+                    g, B, K, G, H, bs, nb, lengths, int8)
+                if int8:
+                    continue
+                if lengths[0] == 1:
+                    bt[0] = 0                   # dead row on scratch block 0
+                kw = dict(window=window, cap=cap)
+                outs = {"kernel": pa.launch(q, kp, vp, bt, lens, **kw),
+                        "plain": pa.paged_attention_ref(
+                            q.reshape(B, 1, K * G, H), kp, vp, bt, lens,
+                            **kw).reshape(q.shape)}
+                exact, mag = _paged_f64(q, kp, vp, bt, lens, window, cap)
+                rounded = _bf16_rounded(exact)
+                sound = mag <= PAGED_F64_COND * exact.abs()
+                row = per_case.setdefault(i, {
+                    "ill": 0, **{w: [0, 0.0, 0.0] for w in outs}})
+                row["ill"] += int((~sound).sum().item())
+                for who, out in outs.items():
+                    ulps = _bf16_ulps(out, exact)
+                    row[who][0] += int((out != rounded).sum().item())
+                    row[who][1] = max(row[who][1], ulps.max().item())
+                    row[who][2] = max(row[who][2], ulps[sound].max().item())
+                del q, kp, vp, bt, lens, outs, exact, mag, rounded, sound
+    total = {w: [sum(r[w][0] for r in per_case.values()),
+                 max(r[w][1] for r in per_case.values()),
+                 max(r[w][2] for r in per_case.values())]
+             for w in ("kernel", "plain")}
+    total["ill"] = sum(r["ill"] for r in per_case.values())
+    for i, r in sorted(per_case.items()) + [(None, total)]:
+        head = "every bf16 case" if i is None else \
+            "{} bf16 B={} K={} G={} H={} bs={} window={} cap={}".format(
+                *[PAGED_CASES[i][j] for j in (0, 1, 2, 3, 4, 5, 8, 9)])
+        k, pl = r["kernel"], r["plain"]
+        log(f"  paged_attention f64 {head}, seeds {PAGED_F64_SEEDS[0]}-"
+            f"{PAGED_F64_SEEDS[-1]}: outputs off the correctly rounded f64 "
+            f"value kernel {k[0]} plain {pl[0]}; max bf16 ulps of the f64 "
+            f"value kernel {k[1]:.3f} plain {pl[1]:.3f}; at condition <= "
+            f"{PAGED_F64_COND} kernel {k[2]:.3f} plain {pl[2]:.3f} "
+            f"({r['ill']} outputs above it)")
+    k, pl = total["kernel"], total["plain"]
+    ok = k[0] <= pl[0] and k[2] <= 1.0
+    log(f"  paged_attention f64: kernel {k[0]} <= plain {pl[0]} outputs off, "
+        f"kernel within 1 bf16 ulp at condition <= {PAGED_F64_COND} "
+        f"({k[2]:.3f}) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"paged_attention f64: kernel {k[0]} outputs off against plain "
+             f"{pl[0]}, max ulps {k[2]} at condition <= {PAGED_F64_COND}")
+    torch.cuda.empty_cache()
+
+
 def _paged_baseline(old_lib, one_launch, run, q, kp, vp, ks, vs, bt, lens,
                     bs, nb, window, cap):
     """Device time of another paged_attention.cu before and after this
@@ -743,7 +902,8 @@ def check_flash_products():
 def check_flash(records, baseline=None):
     """Prefill attention against its plain version at FLASH_CASES: the
     serve path's cold prefills (carboncall-qwen2-7b's 28 x 128 heads over 4
-    kv heads, B = 4 at the 32/64/128 prompt buckets and max_seq 256), the
+    kv heads, B = 4 at the 32/64/128 prompt buckets and max_seq 256;
+    hermes2-pro-8b / llama3.1-8b's 32 x 128 heads over 8 at 64 and 256), the
     kernel's other options (window + softcap, q_offset with Sq < Skv,
     non-causal with Sq != Skv, head dims 64 and 256, Skv not a multiple of
     the 64-key tile) and long prompts, within FLASH_TOL and, row by row,
@@ -1186,7 +1346,7 @@ def serve_once(cfg, variants, kv_cache_dtype, prompts, max_new, swap_at,
         f"kernel_fallbacks={eng.kernel_fallbacks}, invariants clean, "
         f"launches={launches}")
     idle = [k for k in expect if launches[k] <= 0]
-    if idle:
+    if device == "cuda" and idle:
         fail(f"{label}: kernels never launched on this path: {idle}")
     return launches
 
@@ -1275,7 +1435,8 @@ def profile_window(step, label, n: int = 3):
         log(f"  profile {label}: the profiler saw no device time")
         return
     log(f"  profile {label}: {n} steps in {window_ms:.2f} ms, kernels busy "
-        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / window_ms:.3f}")
+        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / window_ms:.3f}, "
+        f"{sum(r[1] for r in rows) // n} launches a step")
     for ms, count, key in rows[:8]:
         log(f"    {ms / n:8.3f} ms/step {100 * ms / busy_ms:5.1f}%  "
             f"x{count // n:<4d} {key[:90]}")
@@ -1287,40 +1448,70 @@ def profile_window(step, label, n: int = 3):
             f"{pms / n:.4f} ms/step, {pms / busy_ms:.4f} of busy time")
 
 
-def phase_serve():
+def draw_variants(cfg, device, label):
+    """Full-width Q8 and Q4 trees of `cfg`, random from seed 0 on a
+    generator on `device` and quantized there leaf by leaf; logs the host
+    seconds and the device memory allocated."""
     import torch
-    from repro_torch import kernels
-    from repro_torch.common.registry import get_arch
     from repro_torch.models import get_model
     from repro_torch.quant.qtensor import init_quantized
-    cfg = get_arch("carboncall-qwen2-7b")
-    spec = get_model(cfg).param_spec()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
     t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    variants = init_quantized(spec, ("q8", "q4"), gen, "cuda")
-    torch.cuda.synchronize()
-    log(f"serve: full-width q8+q4 weights made on the card in "
-        f"{time.perf_counter() - t0:.1f} s (host clock); "
-        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated")
+    gen = torch.Generator(device=device).manual_seed(0)
+    variants = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
+                              device)
+    sync()
+    mem = (f"; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated"
+           if device == "cuda" else "")
+    log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
+        f"q8+q4 weights made on {device} in {time.perf_counter() - t0:.1f} s "
+        f"(host clock){mem}")
+    return variants
+
+
+def serve_paged(cfg, variants, device, label):
+    """Phase 4's two paged paths on `variants`: bf16 KV with a Q8 -> Q4 swap
+    at step 12, then int8 KV on Q8, each a main path of its own. Returns
+    their counts summed."""
+    from repro_torch import kernels
     prompts = _requests(0, cfg.vocab_size)
     per_path = [
         serve_once(cfg, variants, "bf16", prompts, 8, swap_at=12,
-                   label="bf16-KV q8->q4", expect=MODEL_KERNELS),
+                   label="bf16-KV q8->q4", expect=MODEL_KERNELS,
+                   device=device),
         serve_once(cfg, variants, "int8", prompts, 8, swap_at=None,
                    label="int8-KV q8", expect=("q8_matmul", "paged_attention",
-                                               "flash_attention")),
+                                               "flash_attention"),
+                   device=device),
     ]
     launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
-    log(f"serve: main-path launches, both paths summed: {launches}")
+    log(f"{label}: main-path launches, both paths summed: {launches}")
+    return launches
+
+
+def phase_serve(device="cuda", model_cfg=None):
+    """Full-width carboncall-qwen2-7b (unless `model_cfg` says otherwise) on
+    the paged engine: `serve_paged`'s two paths, then decode steps for Q8 /
+    Q4 on bf16 / int8 KV and cold prefills at 4 x 64 and 4 x 256 (on the
+    card only). Returns the paths' counts summed and the step times."""
+    import torch
+    from repro_torch.common.registry import get_arch
+    cfg = model_cfg if model_cfg is not None \
+        else get_arch("carboncall-qwen2-7b")
+    variants = draw_variants(cfg, device, "serve")
+    launches = serve_paged(cfg, variants, device, "serve")
     times = {}
-    for kv in ("bf16", "int8"):
-        for fmt in ("q8", "q4"):
-            times[fmt, kv] = decode_step_ms(cfg, variants[fmt], kv,
-                                            f"{fmt} {kv}-KV")
-    for S in (64, 256):
-        prefill_attention_share(cfg, variants["q8"], "q8", S=S)
+    if device == "cuda":
+        for kv in ("bf16", "int8"):
+            for fmt in ("q8", "q4"):
+                times[fmt, kv] = decode_step_ms(cfg, variants[fmt], kv,
+                                                f"{fmt} {kv}-KV")
+        for S in (64, 256):
+            prefill_attention_share(cfg, variants["q8"], "q8", S=S)
     del variants
-    torch.cuda.empty_cache()
+    if device == "cuda":
+        torch.cuda.empty_cache()
     return launches, times
 
 
@@ -1499,11 +1690,12 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
 # ---------------------------------------------------------------------------
 
 
-def run_runtime(label, ci, device="cuda", model_cfg=None, config=None):
+def run_runtime(label, ci, device="cuda", model_cfg=None, config=None,
+                profile="qwen2-7b"):
     """`run_week` with the carboncall policy over the CI trace `ci`, every
     query selected by `ToolSelector` and served by `EngineExecutor` (on
     full-width carboncall-qwen2-7b unless `model_cfg` says otherwise, sized
-    by `config` when given). The launch counters are set to 0 just before
+    by `config` when given, its steps priced from `PAPER_MODELS[profile]`). The launch counters are set to 0 just before
     the run and read just after. Checks what every runtime path must hold
     and returns (records, executor, this path's counts, the draft lengths
     the executor set)."""
@@ -1521,7 +1713,7 @@ def run_runtime(label, ci, device="cuda", model_cfg=None, config=None):
     cfg = model_cfg if model_cfg is not None \
         else get_arch("carboncall-qwen2-7b")
     t0 = time.perf_counter()
-    ex = EngineExecutor(PAPER_MODELS["qwen2-7b"], ORIN_AGX, model_cfg=cfg,
+    ex = EngineExecutor(PAPER_MODELS[profile], ORIN_AGX, model_cfg=cfg,
                         seed=0, device=device, config=config)
     catalog = build_catalog(240, seed=0)
     sel = ToolSelector(catalog, seed=0, device=device)
@@ -1529,8 +1721,9 @@ def run_runtime(label, ci, device="cuda", model_cfg=None, config=None):
                            policy=POLICIES["carboncall"], modes=ORIN_MODES,
                            catalog_size=len(catalog.tools), seed=0)
     sync()
-    log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
-        f"q8+q4 weights and a {tuple(sel.index.shape)} tool index made on "
+    log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}), "
+        f"profile {profile}; q8+q4 weights and a {tuple(sel.index.shape)} "
+        f"tool index made on "
         f"{device} in {time.perf_counter() - t0:.1f} s (host clock); "
         f"engine {ex.config}")
     # count what the path does, beside the kernels' own counters, and the
@@ -1605,24 +1798,27 @@ def run_runtime(label, ci, device="cuda", model_cfg=None, config=None):
     return recs, ex, launches, ks
 
 
-def phase_runtime(device="cuda", model_cfg=None):
-    """The runtime over a clean-then-dirty CI ramp: the governor must reach
-    a low-power mode, the switcher must swap Q8 -> Q4 live, and the four
-    model kernels must launch. Returns this path's counts."""
+def phase_runtime(device="cuda", model_cfg=None, profile="qwen2-7b",
+                  label="runtime"):
+    """The runtime over a clean-then-dirty CI ramp (priced from
+    `PAPER_MODELS[profile]`): the governor must reach a low-power mode, the
+    switcher must swap Q8 -> Q4 live, and the four model kernels must
+    launch. Returns this path's counts."""
     import torch
     from repro_torch.core import ORIN_MODES
     ci = [RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY
-    recs, ex, launches, _ = run_runtime("runtime", ci, device, model_cfg)
+    recs, ex, launches, _ = run_runtime(label, ci, device, model_cfg,
+                                        profile=profile)
     mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
     if mix["q8"] == 0 or mix["q4"] == 0 or ex.swap_count < 1:
-        fail(f"runtime: no live Q8 -> Q4 swap (mix {mix}, "
+        fail(f"{label}: no live Q8 -> Q4 swap (mix {mix}, "
              f"swap_count {ex.swap_count})")
     if max(r.mode_idx for r in recs) < len(ORIN_MODES) - 2:
-        fail("runtime: the governor never reached a low-power mode")
+        fail(f"{label}: the governor never reached a low-power mode")
     if device == "cuda":
         idle = [k for k in MODEL_KERNELS if launches[k] <= 0]
         if idle:
-            fail(f"runtime: kernels never launched on this path: {idle}")
+            fail(f"{label}: kernels never launched on this path: {idle}")
     del ex
     if device == "cuda":
         torch.cuda.empty_cache()
@@ -1990,20 +2186,10 @@ def phase_serve_spec_chunk(device="cuda", model_cfg=None):
     import torch
     from repro_torch import kernels
     from repro_torch.common.registry import get_arch
-    from repro_torch.models import get_model
-    from repro_torch.quant.qtensor import init_quantized
     from repro_torch.serving import EngineConfig, SpecDecodeConfig
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     cfg = model_cfg if model_cfg is not None \
         else get_arch("carboncall-qwen2-7b")
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    variants = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
-                              device)
-    sync()
-    log(f"serve_spec_chunk: {cfg.name} ({cfg.num_layers} layers, "
-        f"d={cfg.d_model}) q8+q4 weights made on {device} in "
-        f"{time.perf_counter() - t0:.1f} s (host clock)")
+    variants = draw_variants(cfg, device, "serve_spec_chunk")
     per_path = []
 
     # -- chunked prefill ----------------------------------------------------
@@ -2115,6 +2301,51 @@ def dense_decode_step_ms(cfg, params, kv_cache_dtype, label, max_seq):
     return ms
 
 
+def dense_vs_paged(cfg, variants, kv, device):
+    """Phase 4's requests on the dense layout, a main path of its own
+    (counters set to 0 just before it, read just after): on bf16 KV with a
+    Q8 -> Q4 swap at step DENSE_SWAP_AT, on int8 KV without one. Its steps
+    must be the paged engine's on the same weights, its Q8 tokens equal them
+    by the margin rule, and, teacher-forced onto the paged engine's tokens,
+    every Q8 row within ENGINE_LOGIT_REL. Returns the path's counts."""
+    from repro_torch import kernels
+    swap_at, expect = ((DENSE_SWAP_AT, DENSE_KERNELS) if kv == "bf16" else
+                       (None, ("q8_matmul", "flash_attention")))
+    prompts = _requests(0, cfg.vocab_size)
+    label = f"dense {kv}-KV q8{'->q4' if swap_at else ''}"
+    paged, p_reqs, p_clock, p_pre = _serve_spec(
+        cfg, variants, kv, None, prompts, device, swap_at=swap_at,
+        max_new=8, keep_rows=True)
+    _check_engine(f"{label}: paged", paged, p_reqs, 8, device)
+    kernels.reset_launch_counts()
+    eng, reqs, clock, pre = _serve_spec(
+        cfg, variants, kv, None, prompts, device, swap_at=swap_at,
+        layout="dense", max_new=8)
+    launches = _path_launches(label, kernels.launch_counts(), expect, device)
+    _check_engine(label, eng, reqs, 8, device)
+    if eng.kv_layout != "dense":
+        fail(f"{label}: kv_layout resolved to {eng.kv_layout}")
+    steps = [(r["kind"], r["rids"], r["tokens"], r["variant"])
+             for r in eng.step_log]
+    if steps != [(r["kind"], r["rids"], r["tokens"], r["variant"])
+                 for r in paged.step_log]:
+        fail(f"{label}: the dense steps differ from the paged ones")
+    q8 = pre if pre is not None else {r.rid: 8 for r in reqs}
+    _margin_rule(f"{label} vs paged (Q8 tokens)", reqs, p_reqs,
+                 p_clock.margins, q8)
+    ref = (p_clock.rows, {r.rid: r.output for r in p_reqs})
+    forced = _serve_spec(cfg, variants, kv, None, prompts, device,
+                         swap_at=swap_at, layout="dense", max_new=8,
+                         ref=ref, ref_q8=q8)[2]
+    _forced_logits(f"{label} vs paged", forced)
+    log(f"  {label}: {len(reqs)} DONE in {len(steps)} steps, "
+        f"swaps={eng.swap_count}, step times (CUDA events) dense "
+        f"{sum(clock.ms):.1f} ms, paged {sum(p_clock.ms):.1f} ms")
+    if device == "cuda" and launches["paged_attention"] != 0:
+        fail(f"{label}: the paged kernel ran on the dense layout")
+    return launches
+
+
 def phase_serve_dense(device="cuda", model_cfg=None):
     """Full-width carboncall-qwen2-7b (unless `model_cfg` says otherwise) on
     `kv_layout="dense"`. Three main paths, each with its launch counters set
@@ -2127,55 +2358,11 @@ def phase_serve_dense(device="cuda", model_cfg=None):
     import torch
     from repro_torch import kernels
     from repro_torch.common.registry import get_arch
-    from repro_torch.models import get_model
-    from repro_torch.quant.qtensor import init_quantized
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     cfg = model_cfg if model_cfg is not None \
         else get_arch("carboncall-qwen2-7b")
-    t0 = time.perf_counter()
-    gen = torch.Generator(device=device).manual_seed(0)
-    variants = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
-                              device)
-    sync()
-    log(f"serve_dense: {cfg.name} ({cfg.num_layers} layers, "
-        f"d={cfg.d_model}) q8+q4 weights made on {device} in "
-        f"{time.perf_counter() - t0:.1f} s (host clock)")
-    prompts = _requests(0, cfg.vocab_size)
-    per_path = []
-    for kv, swap_at, expect in (("bf16", DENSE_SWAP_AT, DENSE_KERNELS),
-                                ("int8", None, ("q8_matmul",
-                                                "flash_attention"))):
-        label = f"dense {kv}-KV q8{'->q4' if swap_at else ''}"
-        paged, p_reqs, p_clock, p_pre = _serve_spec(
-            cfg, variants, kv, None, prompts, device, swap_at=swap_at,
-            max_new=8, keep_rows=True)
-        _check_engine(f"{label}: paged", paged, p_reqs, 8, device)
-        kernels.reset_launch_counts()
-        eng, reqs, clock, pre = _serve_spec(
-            cfg, variants, kv, None, prompts, device, swap_at=swap_at,
-            layout="dense", max_new=8)
-        per_path.append(_path_launches(label, kernels.launch_counts(),
-                                       expect, device))
-        _check_engine(label, eng, reqs, 8, device)
-        if eng.kv_layout != "dense":
-            fail(f"{label}: kv_layout resolved to {eng.kv_layout}")
-        steps = [(r["kind"], r["rids"], r["tokens"], r["variant"])
-                 for r in eng.step_log]
-        if steps != [(r["kind"], r["rids"], r["tokens"], r["variant"])
-                     for r in paged.step_log]:
-            fail(f"{label}: the dense steps differ from the paged ones")
-        q8 = pre if pre is not None else {r.rid: 8 for r in reqs}
-        _margin_rule(f"{label} vs paged (Q8 tokens)", reqs, p_reqs,
-                     p_clock.margins, q8)
-        ref = (p_clock.rows, {r.rid: r.output for r in p_reqs})
-        forced = _serve_spec(cfg, variants, kv, None, prompts, device,
-                             swap_at=swap_at, layout="dense", max_new=8,
-                             ref=ref, ref_q8=q8)[2]
-        _forced_logits(f"{label} vs paged", forced)
-        log(f"  {label}: {len(reqs)} DONE in {len(steps)} steps, "
-            f"swaps={eng.swap_count}, step times (CUDA events) dense "
-            f"{sum(clock.ms):.1f} ms, paged {sum(p_clock.ms):.1f} ms")
-        del paged, eng, p_clock, ref
+    variants = draw_variants(cfg, device, "serve_dense")
+    per_path = [dense_vs_paged(cfg, variants, kv, device)
+                for kv in ("bf16", "int8")]
     per_path.append(chunked_vs_monolithic(cfg, variants, device, "dense"))
     launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
     if device == "cuda" and launches["paged_attention"] != 0:
@@ -2232,6 +2419,58 @@ def phase_runtime_mamba2(device="cuda", model_cfg=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 10-11. the paper's other two models: hermes2-pro-8b and llama3.1-8b
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_paper_models(device="cuda", model_cfgs=None):
+    """Each of PAPER_ARCHS (or `model_cfgs`) at full width, one at a time,
+    its trees freed before the next: phase 4's two paged paths, one dense
+    path on bf16 KV teacher-forced onto the paged engine's tokens, and (on
+    the card) a decode step at batch 4 for Q8 and Q4 on bf16 KV. Returns
+    the paths' counts summed over both models."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    cfgs = model_cfgs or [get_arch(a) for a in PAPER_ARCHS]
+    per_path = []
+    for cfg in cfgs:
+        label = f"serve_paper_models {cfg.name}"
+        variants = draw_variants(cfg, device, label)
+        per_path.append(serve_paged(cfg, variants, device, label))
+        per_path.append(dense_vs_paged(cfg, variants, "bf16", device))
+        if device == "cuda":
+            for fmt in ("q8", "q4"):
+                decode_step_ms(cfg, variants[fmt], "bf16",
+                               f"{cfg.name} {fmt} bf16-KV")
+        del variants
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+    log(f"serve_paper_models: main-path launches, {len(per_path)} paths "
+        f"summed: {launches}")
+    return launches
+
+
+def phase_runtime_paper_models(device="cuda", model_cfgs=None):
+    """Phase 6's loop (the same CI ramp, workload and catalog) over each of
+    PAPER_ARCHS (or `model_cfgs`) at full width, priced from its own
+    profile: each a main path of its own with a live Q8 -> Q4 swap, a
+    low-power mode, and the four model kernels and sim_scores launched.
+    Returns the paths' counts summed."""
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    cfgs = model_cfgs or [get_arch(a) for a in PAPER_ARCHS]
+    per_path = []
+    for arch, cfg in zip(PAPER_ARCHS, cfgs):
+        label = f"runtime_paper_models {cfg.name}"
+        per_path.append(_path_launches(
+            label, phase_runtime(device, cfg, profile=arch, label=label),
+            MODEL_KERNELS + ("sim_scores",), device))
+    return {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2258,6 +2497,7 @@ def main():
     log("kernels: each against its plain version")
     check_quant_matmul(records)
     check_paged(records, tuple(args.paged_baseline))
+    check_paged_f64()
     check_flash_products()
     check_flash(records, args.flash_baseline)
     check_sim_scores(records)
@@ -2268,12 +2508,15 @@ def main():
     spec_chunk_launches = phase_serve_spec_chunk()
     dense_launches = phase_serve_dense()
     runtime_mamba2_launches = phase_runtime_mamba2()
+    paper_launches = phase_serve_paper_models()
+    runtime_paper_launches = phase_runtime_paper_models()
     per_phase = (serve_launches, mamba_launches, runtime_launches,
-                 spec_chunk_launches, dense_launches, runtime_mamba2_launches)
+                 spec_chunk_launches, dense_launches, runtime_mamba2_launches,
+                 paper_launches, runtime_paper_launches)
     launches = {k: sum(p[k] for p in per_phase) for k in kernels.KERNELS}
     log(f"main-path launches, serve, serve_mamba2, runtime, "
-        f"serve_spec_chunk, serve_dense and runtime_mamba2 summed: "
-        f"{launches}")
+        f"serve_spec_chunk, serve_dense, runtime_mamba2, serve_paper_models "
+        f"and runtime_paper_models summed: {launches}")
     log(json.dumps({"kernels": [records[k].to_json(launches[k])
                                 for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

@@ -60,7 +60,12 @@
 //   single value reaches, against 1e-2 for int8): P rounded to bf16 (2^-9)
 //   or split in two (2^-16) flips such outputs. So P (with v_scale folded
 //   in, for int8) is split into three bf16 parts, P to 2^-24, and P V is
-//   three products, smallest first.
+//   three products, smallest first. They start from zero each tile, and
+//   the tile's sum is added to O in f32, rounded to nearest: the tensor
+//   core does not round its accumulation to nearest, and chaining O through
+//   it over a long chain's tiles put the kernel further from the f64 result
+//   than the plain version (PERF.md §6, PR 27). At HMAX 256 the registers
+//   hold no tile sum without spilling, so O stays the accumulator there.
 // - One launch, bit-identical repeats. The live warps of a block meet in
 //   shared memory, combined in warp order. With one split the block writes
 //   bf16;
@@ -315,9 +320,9 @@ __global__ void __launch_bounds__(THREADS)
     cp_async_commit();
   };
 
-  float acc[NT][4];
+  float acc[NT][2];  // O's rows 0..7 (m16 rows 8..15 are zero)
 #pragma unroll
-  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int n = 0; n < NT; ++n) acc[n][0] = acc[n][1] = 0.f;
   float m_run = NEG_INF, lsum = 0.f;  // row g: running max, lane's sum
 
 #pragma unroll 1
@@ -428,7 +433,8 @@ __global__ void __launch_bounds__(THREADS)
       }
     }
 
-    // O += P V, 16 columns a step (P's parts smallest first)
+    // O += P V, 16 columns a step: the tile's P V from zero (P's parts
+    // smallest first), then added to O in f32
 #pragma unroll
     for (int k = 0; k < KS; ++k) {
       uint32_t vb[2][2];  // n8 tiles 2k and 2k + 1: b0, b1
@@ -449,11 +455,23 @@ __global__ void __launch_bounds__(THREADS)
         vb[1][1] = r[3];
       }
 #pragma unroll
-      for (int part = PARTS - 1; part >= 0; --part)
+      for (int t = 0; t < 2; ++t) {
+        float d[4] = {0.f, 0.f, 0.f, 0.f};
+        if constexpr (Q_SMEM) {  // no registers for a tile sum: chained
+          d[0] = acc[2 * k + t][0];
+          d[1] = acc[2 * k + t][1];
+        }
 #pragma unroll
-        for (int t = 0; t < 2; ++t)
-          mma_bf16(acc[2 * k + t], pp[part][0], 0u, pp[part][1], 0u,
-                   vb[t][0], vb[t][1]);
+        for (int part = PARTS - 1; part >= 0; --part)
+          mma_bf16(d, pp[part][0], 0u, pp[part][1], 0u, vb[t][0], vb[t][1]);
+        if constexpr (Q_SMEM) {
+          acc[2 * k + t][0] = d[0];
+          acc[2 * k + t][1] = d[1];
+        } else {
+          acc[2 * k + t][0] += d[0];
+          acc[2 * k + t][1] += d[1];
+        }
+      }
     }
   }
   cp_async_wait<0>();

@@ -1,5 +1,6 @@
 """The transformer's dense KV layout in the port, against the JAX package's,
-on the reduced carboncall-qwen2-7b.
+on the reduced carboncall-qwen2-7b (and its `decode_step` on the reduced
+hermes2-pro-8b, which has no qkv bias).
 
 Model (in this process, weights moved by `repro_torch.bridge` as in
 `tests/test_torch_model.py`): `cache_spec` leaf for leaf at the reduced and
@@ -90,10 +91,9 @@ def test_cache_spec_matches_reference(kv, reduced):
             (d.shape, tuple(d.logical), d.init, d.dtype), key
 
 
-@pytest.fixture(scope="module")
-def setup():
-    ref_cfg = ref_reduce(ref_get_arch("carboncall-qwen2-7b"))
-    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+def _setup(arch):
+    ref_cfg = ref_reduce(ref_get_arch(arch))
+    cfg = reduce_config(get_arch(arch))
     spec = ref_get_model(ref_cfg).param_spec()
     params = ref_init_params(spec, jax.random.PRNGKey(SEED))
     trees = {}
@@ -103,6 +103,18 @@ def setup():
     toks = np.random.default_rng(SEED).integers(2, 512, size=(B, S)).astype(
         np.int32)
     return ref_cfg, cfg, trees, toks
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("carboncall-qwen2-7b")
+
+
+@pytest.fixture(scope="module")
+def hermes():
+    """The reduced hermes2-pro-8b (no qkv bias; the reduced llama3.1-8b is
+    the same model under another name)."""
+    return _setup("hermes2-pro-8b")
 
 
 def _logits_close(want, got):
@@ -170,6 +182,16 @@ def test_dense_prefill_fills_the_stripe_as_reference(setup, fmt, kv):
 def test_decode_step_matches_reference(setup, fmt, kv):
     """Rows at length 0, mid-stripe and SMAX (saturated: writes nothing,
     reads the whole stripe) decode one token on the same cache."""
+    _decode_step_case(setup, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_hermes_decode_step_matches_reference(hermes, fmt, kv):
+    """The same on the reduced hermes2-pro-8b: no qkv bias."""
+    _decode_step_case(hermes, fmt, kv)
+
+
+def _decode_step_case(setup, fmt, kv):
     ref_cfg, cfg, trees, toks = setup
     rp, pp = trees[fmt]
     rc = RuntimeConfig(kv_cache_dtype=kv)

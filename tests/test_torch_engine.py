@@ -21,8 +21,11 @@ What must match:
     reference's within ENGINE_LOGIT_TOL, and its own argmax must be the
     reference's token wherever the margin is at least MARGIN_BOUND.
 Scenarios: prefix hits with a Q8 -> Q4 hot swap, preemption and exact resume
-under a tight pool, and int8 KV. A last, port-only test covers cancellation
-and deadline expiry.
+under a tight pool, and int8 KV. The reduced hermes2-pro-8b (no qkv bias,
+G = 4; the reduced llama3.1-8b is the same model) runs the swap and int8
+scenarios, its reference in a subprocess of its own that waits for every
+jitted call. A last, port-only test covers cancellation and deadline
+expiry.
 """
 import json
 import os
@@ -54,6 +57,9 @@ SEED = 3
 ENGINE_LOGIT_TOL = 0.08
 MARGIN_BOUND = 2 * ENGINE_LOGIT_TOL
 STEP_COST_S = 0.001             # virtual seconds per step plus per token
+# the reduced hermes2-pro-8b and llama3.1-8b are one model under two names
+HERMES = "hermes2-pro-8b"
+HERMES_SCENARIOS = ("prefix_swap", "int8")
 
 REF_SCRIPT = r"""
 import json, sys
@@ -71,7 +77,7 @@ from repro.sharding.param import init_params
 
 spec_in = json.loads(open(sys.argv[1]).read())
 out_dir = sys.argv[2]
-cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+cfg = reduce_config(get_arch(spec_in.get("arch", "carboncall-qwen2-7b")))
 spec = get_model(cfg).param_spec()
 params = init_params(spec, jax.random.PRNGKey(spec_in["seed"]))
 variants = {f: quantize_tree(params, spec, f) for f in ("q8", "q4")}
@@ -108,6 +114,17 @@ class _CopyingJnp:
     def asarray(x, *args, **kwargs):
         return E.jax.numpy.array(x, *args, **kwargs)
 E.jnp = _CopyingJnp()
+# With "wait", also wait for each jitted call's inputs and outputs, as
+# tests/test_torch_spec_chunk.py's reference does.
+if spec_in.get("wait"):
+    orig_shared = E.ServingEngine._shared_exec
+    def _shared_exec(self, kind, build, *extra):
+        fn = orig_shared(self, kind, build, *extra)
+        def synced(*args):
+            jax.block_until_ready(args)
+            return jax.block_until_ready(fn(*args))
+        return synced
+    E.ServingEngine._shared_exec = _shared_exec
 
 orig_sample, orig_emit = E.ServingEngine._sample, E.ServingEngine._emit
 def _sample(self, logits, req):
@@ -186,12 +203,11 @@ def _scenarios():
     ]
 
 
-@pytest.fixture(scope="module")
-def reference(tmp_path_factory):
+def _reference(tmp_path_factory, **spec_kw):
     out = tmp_path_factory.mktemp("ref_engine")
     spec_path = out / "spec.json"
     spec_path.write_text(json.dumps({"seed": SEED, "cost": STEP_COST_S,
-                                     "scenarios": _scenarios()}))
+                                     "scenarios": _scenarios(), **spec_kw}))
     env = dict(os.environ)
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
@@ -205,6 +221,20 @@ def reference(tmp_path_factory):
     arrays = np.load(out / "weights.npz")
     logits = dict(np.load(out / "logits.npz"))
     return data, arrays, logits
+
+
+@pytest.fixture(scope="module")
+def reference(tmp_path_factory):
+    return _reference(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def hermes_reference(tmp_path_factory):
+    """The reduced hermes2-pro-8b (no qkv bias) in the reference engine,
+    waiting for every jitted call, on HERMES_SCENARIOS only."""
+    return _reference(tmp_path_factory, arch=HERMES, wait=True,
+                      scenarios=[sc for sc in _scenarios()
+                                 if sc["name"] in HERMES_SCENARIOS])
 
 
 def _port_variants(meta, arrays):
@@ -242,12 +272,13 @@ def _port_variants(meta, arrays):
     return out
 
 
-def _run_port(variants, sc, force=None):
-    """Serve scenario `sc` on the port. With `force` (the reference's token
-    streams, one per prompt) every emission is teacher-forced to the
-    reference's token and the port's logits row for it is kept, so both
-    engines see the same history at every step; returns the rows too."""
-    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
+def _run_port(variants, sc, force=None, arch="carboncall-qwen2-7b"):
+    """Serve scenario `sc` on the port's reduced `arch`. With `force` (the
+    reference's token streams, one per prompt) every emission is
+    teacher-forced to the reference's token and the port's logits row for it
+    is kept, so both engines see the same history at every step; returns the
+    rows too."""
+    cfg = reduce_config(get_arch(arch))
     eng = ServingEngine(
         cfg, variants["q8"], RuntimeConfig(kv_cache_dtype=sc["kv"]),
         max_batch=sc["max_batch"], max_seq=sc["max_seq"], kv_layout="paged",
@@ -291,6 +322,12 @@ def port_variants(reference):
     return _port_variants(data["meta"], arrays)
 
 
+@pytest.fixture(scope="module")
+def hermes_variants(hermes_reference):
+    data, arrays, _ = hermes_reference
+    return _port_variants(data["meta"], arrays)
+
+
 def _margins(rows):
     top2 = np.sort(rows, axis=-1)[:, -2:]
     return top2[:, 1] - top2[:, 0]
@@ -298,10 +335,27 @@ def _margins(rows):
 
 @pytest.mark.parametrize("name", ["prefix_swap", "preempt", "int8"])
 def test_engine_matches_reference(reference, port_variants, name):
+    _free_running(reference, port_variants, name)
+
+
+@pytest.mark.parametrize("name", HERMES_SCENARIOS)
+def test_hermes_engine_matches_reference(hermes_reference, hermes_variants,
+                                         name):
+    """The reduced hermes2-pro-8b on the paged engine: step log, EngineStats
+    and tokens up to the first near-tie as for carboncall-qwen2-7b, then
+    teacher-forced logits within ENGINE_LOGIT_TOL."""
+    eng = _free_running(hermes_reference, hermes_variants, name, HERMES)
+    assert not eng.cfg.qkv_bias and eng.cfg.num_heads // \
+        eng.cfg.num_kv_heads == 4
+    _teacher_forced(hermes_reference, hermes_variants, name, HERMES)
+
+
+def _free_running(reference, port_variants, name,
+                  arch="carboncall-qwen2-7b"):
     data, _, ref_logits = reference
     ref = data["results"][name]
     sc = {s["name"]: s for s in _scenarios()}[name]
-    eng, reqs, _ = _run_port(port_variants, sc)
+    eng, reqs, _ = _run_port(port_variants, sc, arch=arch)
 
     assert [r.status for r in reqs] == ref["status"]
     log = [[s["kind"], list(s["rids"]), s["tokens"], s["variant"],
@@ -324,6 +378,7 @@ def test_engine_matches_reference(reference, port_variants, name):
             compared += 1
     print(f"{name}: {compared} of {emitted} tokens compared free-running")
     assert compared > 0
+    return eng
 
 
 @pytest.mark.parametrize("name", ["prefix_swap", "preempt", "int8"])
@@ -335,10 +390,16 @@ def test_engine_logits_match_reference_teacher_forced(reference,
     match the reference's within ENGINE_LOGIT_TOL; where the reference's
     top-2 margin is at least MARGIN_BOUND the port's own argmax must be the
     reference's token."""
+    _teacher_forced(reference, port_variants, name)
+
+
+def _teacher_forced(reference, port_variants, name,
+                    arch="carboncall-qwen2-7b"):
     data, _, ref_logits = reference
     ref = data["results"][name]
     sc = {s["name"]: s for s in _scenarios()}[name]
-    eng, reqs, rows = _run_port(port_variants, sc, force=ref["output"])
+    eng, reqs, rows = _run_port(port_variants, sc, force=ref["output"],
+                                arch=arch)
     assert [r.output for r in reqs] == ref["output"]
     worst = 0.0
     for i, (r, got) in enumerate(zip(reqs, rows)):

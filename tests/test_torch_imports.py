@@ -63,6 +63,26 @@ def test_every_module_imports_without_jax():
     assert proc.stdout.strip() == "ok"
 
 
+def test_paper_model_configs_resolve_without_jax():
+    """The paper's three models resolve from the port's registry with jax
+    and the JAX package unimportable, and the registry lists them beside
+    mamba2-370m."""
+    script = ("import sys\n"
+              "sys.modules['jax'] = None\n"
+              "sys.modules['repro'] = None\n"
+              "from repro_torch.common.registry import get_arch, list_archs\n"
+              "names = ('hermes2-pro-8b', 'llama3.1-8b', "
+              "'carboncall-qwen2-7b')\n"
+              "assert [get_arch(n).name for n in names] == list(names)\n"
+              "assert set(names) | {'mamba2-370m'} == set(list_archs())\n"
+              "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", script], env=_env(),
+                          cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
 def test_core_import_builds_nothing():
     """`import repro_torch.core` loads no kernel library, makes no weights
     and does not start CUDA."""

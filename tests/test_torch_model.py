@@ -1,5 +1,8 @@
 """The port's reduced carboncall-qwen2-7b against the JAX package's, logit
-for logit, with the same weights moved by `repro_torch.bridge`.
+for logit, with the same weights moved by `repro_torch.bridge`; and the
+paper's other two models, hermes2-pro-8b and llama3.1-8b (no qkv bias, GQA
+at 32 / 8 heads), whose reduced configs are one model under two names, so
+the reduced hermes2-pro-8b runs the same cases.
 
 Covers cold prefill (`prefill` -> `forward`), the cache-hit window
 (`prefill_paged` -> `_prefill_window`) and one paged decode step, for the Q8
@@ -33,7 +36,10 @@ from repro_torch.bridge import params_from_numpy
 from repro_torch.common.registry import get_arch
 from repro_torch.config import RuntimeConfig
 from repro_torch.configs.reduced import reduce_config
+from repro_torch.models import get_model
 from repro_torch.models import transformer as PT
+from repro_torch.quant import QTensor as PQTensor
+from repro_torch.quant.qtensor import init_quantized
 from repro_torch.sharding.param import init_params
 
 LOGIT_TOL = 0.08
@@ -51,18 +57,22 @@ def _to_numpy(tree):
     return np.asarray(tree)
 
 
-@pytest.fixture(scope="module")
-def setup():
-    ref_cfg = ref_reduce(ref_get_arch("carboncall-qwen2-7b"))
-    cfg = reduce_config(get_arch("carboncall-qwen2-7b"))
-    # the port's fields match; the reference's other fields (MoE, SSM,
-    # hybrid, ...) hold their defaults, so the port's config is the same model
+def _assert_same_model(ref_cfg, cfg):
+    """The port's fields match; the reference's other fields (MoE, SSM,
+    hybrid, ...) hold their defaults, so the port's config is the same
+    model."""
     shared = set(cfg.__dict__)
     assert {k: v for k, v in ref_cfg.__dict__.items() if k in shared} \
         == cfg.__dict__
     defaults = {f.name: f.default for f in dataclasses.fields(ref_cfg)}
     assert {k: v for k, v in ref_cfg.__dict__.items() if k not in shared} \
         == {k: v for k, v in defaults.items() if k not in shared}
+
+
+def _setup(arch):
+    ref_cfg = ref_reduce(ref_get_arch(arch))
+    cfg = reduce_config(get_arch(arch))
+    _assert_same_model(ref_cfg, cfg)
     spec = ref_get_model(ref_cfg).param_spec()
     params = ref_init_params(spec, jax.random.PRNGKey(5))
     trees = {}
@@ -72,6 +82,16 @@ def setup():
     toks = np.random.default_rng(11).integers(2, 512, size=(B, S)).astype(
         np.int32)
     return ref_cfg, cfg, trees, toks
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("carboncall-qwen2-7b")
+
+
+@pytest.fixture(scope="module")
+def hermes():
+    return _setup("hermes2-pro-8b")
 
 
 def _close(a, b):
@@ -88,6 +108,15 @@ CASES = [(f, kv) for f in ("q8", "q4") for kv in ("bf16", "int8")]
 
 @pytest.mark.parametrize("fmt,kv", CASES)
 def test_prefill_logits_and_kv(setup, fmt, kv):
+    _prefill_logits_and_kv(setup, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_hermes_prefill_logits_and_kv(hermes, fmt, kv):
+    _prefill_logits_and_kv(hermes, fmt, kv)
+
+
+def _prefill_logits_and_kv(setup, fmt, kv):
     ref_cfg, cfg, trees, toks = setup
     rp, pp = trees[fmt]
     rrc = RefRuntimeConfig(kv_cache_dtype=kv)
@@ -113,6 +142,15 @@ def test_prefill_logits_and_kv(setup, fmt, kv):
 
 @pytest.mark.parametrize("fmt,kv", CASES)
 def test_prefix_window_logits(setup, fmt, kv):
+    _prefix_window_logits(setup, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_hermes_prefix_window_logits(hermes, fmt, kv):
+    _prefix_window_logits(hermes, fmt, kv)
+
+
+def _prefix_window_logits(setup, fmt, kv):
     ref_cfg, cfg, trees, toks = setup
     rp, pp = trees[fmt]
     g = np.random.default_rng(12)
@@ -139,6 +177,15 @@ def test_prefix_window_logits(setup, fmt, kv):
 
 @pytest.mark.parametrize("fmt,kv", CASES)
 def test_decode_step_paged_logits(setup, fmt, kv):
+    _decode_step_paged_logits(setup, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_hermes_decode_step_paged_logits(hermes, fmt, kv):
+    _decode_step_paged_logits(hermes, fmt, kv)
+
+
+def _decode_step_paged_logits(setup, fmt, kv):
     ref_cfg, cfg, trees, toks = setup
     rp, pp = trees[fmt]
     rc = RuntimeConfig(kv_cache_dtype=kv)
@@ -181,3 +228,68 @@ def test_decode_step_paged_logits(setup, fmt, kv):
             got = got * ppool["k_scale"][:, bid, off].numpy()[..., None]
         tol = 0.05 * max(1.0, float(np.max(np.abs(want))))
         assert float(np.max(np.abs(want - got))) < tol
+
+
+def _spec_leaves(spec, prefix=""):
+    out = {}
+    for k, d in spec.items():
+        if isinstance(d, dict):
+            out.update(_spec_leaves(d, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = (tuple(d.shape), tuple(d.logical), d.init,
+                               d.dtype)
+    return out
+
+
+def _tree_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_tree_leaves(v, f"{prefix}{k}/"))
+        elif isinstance(v, (PQTensor, RefQTensor)):
+            for f in ("q", "scale", "zero"):
+                a = getattr(v, f)
+                if a is not None:
+                    out[f"{prefix}{k}/{f}"] = (tuple(a.shape),
+                                               str(a.dtype).split(".")[-1])
+        else:
+            out[prefix + k] = (tuple(v.shape), str(v.dtype).split(".")[-1])
+    return out
+
+
+def test_paper_model_configs_match_reference(hermes):
+    """hermes2-pro-8b and llama3.1-8b at full width are the reference's
+    configs field for field; reduced, they are one model under two names
+    (`reduce_config` keeps rope_theta and qkv_bias, and sets the same
+    widths for both vocabularies); the reduced hermes has no bq / bk / bv in
+    either package's param_spec, whose leaves are the same, and the port's
+    quantized trees (drawn, and bridged from the reference's) carry the
+    same leaves as the reference's quantized tree."""
+    for arch in ("hermes2-pro-8b", "llama3.1-8b"):
+        _assert_same_model(ref_get_arch(arch), get_arch(arch))
+    full = get_arch("hermes2-pro-8b")
+    assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+            full.resolved_head_dim, full.d_ff, full.vocab_size,
+            full.rope_theta, full.qkv_bias) == \
+        (32, 4096, 32, 8, 128, 14336, 128288, 5e5, False)
+    assert get_arch("llama3.1-8b").vocab_size == 128256
+    rh = reduce_config(get_arch("hermes2-pro-8b"))
+    rl = reduce_config(get_arch("llama3.1-8b"))
+    assert rl.name == "llama3.1-8b-reduced" and rh.name != rl.name
+    assert dataclasses.replace(rl, name=rh.name) == rh
+    ref_rh = ref_reduce(ref_get_arch("hermes2-pro-8b"))
+    ref_rl = ref_reduce(ref_get_arch("llama3.1-8b"))
+    assert dataclasses.replace(ref_rl, name=ref_rh.name) == ref_rh
+    ref_spec = _spec_leaves(ref_get_model(ref_rh).param_spec())
+    spec = _spec_leaves(get_model(rh).param_spec())
+    assert spec == ref_spec
+    assert not any(k.split("/")[-1] in ("bq", "bk", "bv") for k in spec)
+    assert "layers/attn/wq" in spec
+    ref_cfg, cfg, trees, _ = hermes
+    drawn = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"),
+                           torch.Generator().manual_seed(0), "cpu")
+    for fmt in ("q8", "q4"):
+        rp, pp = trees[fmt]
+        want = _tree_leaves(rp)
+        assert _tree_leaves(pp) == want
+        assert _tree_leaves(drawn[fmt]) == want

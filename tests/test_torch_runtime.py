@@ -17,6 +17,10 @@
     so served count, per-record variant / mode / tool count / success / tier,
     `swap_count` and the engine's step log must be equal, and latency,
     energy, carbon and TPS equal within ENGINE_REL_TOL;
+  * the paper's other two models, hermes2-pro-8b and llama3.1-8b: the sim
+    week under each one's profile against the reference, and each one's
+    reduced model served by `make_executor("engine", ...)` in the port
+    across a live swap;
   * the port's entry points run on the card by default and refuse what is
     not ported yet.
 """
@@ -50,6 +54,8 @@ SIM_QPH = 2.0                   # a full week of arrivals: ~350 queries
 # engine week: clean grid, then a dirty one; 12 queries an hour
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 3, 4, (100.0, 900.0)
 ENGINE_QPH = 12.0
+# the paper's other two models: each is its own profile and its own arch
+PAPER_ARCHS = ("hermes2-pro-8b", "llama3.1-8b")
 
 
 def _ramp():
@@ -193,9 +199,9 @@ def selectors():
     return ref_sel, sel
 
 
-def _sim_week(C, W, sel, hw, policy):
+def _sim_week(C, W, sel, hw, policy, profile=PROFILE):
     rt = C.CarbonCallRuntime(
-        selector=sel, executor=C.SimExecutor(C.PAPER_MODELS[PROFILE], hw,
+        selector=sel, executor=C.SimExecutor(C.PAPER_MODELS[profile], hw,
                                              seed=0),
         policy=C.POLICIES[policy], modes=C.ORIN_MODES, catalog_size=240,
         seed=0)
@@ -214,6 +220,23 @@ def test_run_week_sim_matches_reference(selectors, policy):
         [dataclasses.astuple(r) for r in want.records]
     assert got.tier_summary() == want.tier_summary()
     assert {r.mode_idx for r in got.records} != {0}   # governor moved
+
+
+@pytest.mark.parametrize("profile", PAPER_ARCHS)
+def test_run_week_sim_under_paper_profiles_matches_reference(selectors,
+                                                             profile):
+    """The paper's Hermes and LLaMA weeks: the same week under each model's
+    own profile, whose step prices differ from qwen2-7b's."""
+    ref_sel, sel = selectors
+    want = _sim_week(RC, RW, ref_sel, REF_ORIN, "carboncall", profile)
+    got = _sim_week(PC, PW, sel, ORIN_AGX, "carboncall", profile)
+    assert len(want.records) > 300
+    assert [dataclasses.astuple(r) for r in got.records] == \
+        [dataclasses.astuple(r) for r in want.records]
+    assert got.tier_summary() == want.tier_summary()
+    qwen = _sim_week(PC, PW, sel, ORIN_AGX, "carboncall")
+    assert [r.energy_j for r in got.records] != \
+        [r.energy_j for r in qwen.records]
 
 
 # ---------------------------------------------------------------------------
@@ -368,6 +391,58 @@ def test_run_week_engine_over_mamba2_matches_reference(
     assert ex.cfg.family == "mamba2" and ex.engine.kv_layout == "dense"
     assert {s["kind"] for s in ex.engine.step_log} == {"prefill", "decode"}
     assert ex.engine.kernel_fallbacks == 0          # no paged reads
+
+
+@pytest.fixture(scope="module")
+def paper_weeks(selectors):
+    """Each paper model's engine-backed week on the port alone: its profile
+    and its reduced arch through `make_executor`, over the ramp."""
+    _, sel = selectors
+    out = {}
+    for name in PAPER_ARCHS:
+        ex = PC.make_executor("engine", PC.PAPER_MODELS[name], ORIN_AGX,
+                              arch=name, device="cpu")
+        requests, submit = [], ex.engine.submit
+
+        def recorded_submit(req, requests=requests, submit=submit):
+            requests.append(req)
+            return submit(req)
+
+        ex.engine.submit = recorded_submit
+        rt = PC.CarbonCallRuntime(
+            selector=sel, executor=ex, policy=PC.POLICIES["carboncall"],
+            modes=PC.ORIN_MODES, catalog_size=240, seed=0)
+        res = PC.run_week(rt, PW.FunctionCallWorkload(sel.catalog, seed=3),
+                          _ramp(), queries_per_hour=ENGINE_QPH, seed=0)
+        out[name] = (ex, res.records, requests)
+    return out
+
+
+@pytest.mark.parametrize("name", PAPER_ARCHS)
+def test_paper_model_executor_serves_with_a_swap(paper_weeks, name):
+    """`make_executor("engine", PAPER_MODELS[name], ORIN_AGX, arch=name)`
+    builds the reduced model (no qkv bias, 4 query heads a KV head) on the
+    paged engine, prices its steps from its own profile, and serves the
+    ramp's queries across a live Q8 -> Q4 swap. The two reduced models are
+    one model under two names and their profiles the same constants, so
+    LLaMA's week is Hermes's."""
+    ex, recs, requests = paper_weeks[name]
+    assert ex.profile is PC.PAPER_MODELS[name]
+    assert ex.cfg.name == f"{name}-reduced" and not ex.cfg.qkv_bias
+    assert ex.cfg.num_heads == 4 * ex.cfg.num_kv_heads
+    assert ex.engine.kv_layout == "paged" and ex.engine.kernel_fallbacks > 0
+    assert len(recs) > 10 and ex.swap_count >= 1
+    assert {r.variant for r in recs} == {"q8", "q4"}
+    assert {r.mode_idx for r in recs} >= {0, 4}
+    assert all(r.tps > 0 for r in recs)
+    assert check_invariants(ex.engine, requests) == []
+    hermes = paper_weeks[PAPER_ARCHS[0]]
+    assert [dataclasses.astuple(r) for r in recs] == \
+        [dataclasses.astuple(r) for r in hermes[1]]
+    assert [(s["kind"], s["rids"], s["tokens"], s["variant"])
+            for s in ex.engine.step_log] == \
+        [(s["kind"], s["rids"], s["tokens"], s["variant"])
+         for s in hermes[0].engine.step_log]
 
 
 # ---------------------------------------------------------------------------
