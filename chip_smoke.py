@@ -103,8 +103,8 @@ Phases, each raising on its first fault (the script then exits non-zero):
                a decode step at batch 4 for Q8 and Q4 on bf16 KV, paged and
                dense at max_seq DENSE_STEP_SEQS: CUDA events, busy time and
                idle share by the profiler.
-  9. runtime_mamba2 — phase 6's loop (the same CI ramp, workload and
-               catalog) over full-width mamba2-370m on the dense engine, its
+  9. runtime_mamba2 — phase 6's loop (the same workload and catalog over
+               SHORT_RAMP) over full-width mamba2-370m on the dense engine, its
                weights drawn on the card's generator: queries served, swaps,
                host seconds, the mode and variant mix; ssd_bshp (one launch
                a layer a prefill step), q8_matmul, q4_matmul and sim_scores
@@ -121,13 +121,46 @@ Phases, each raising on its first fault (the script then exits non-zero):
                invariant sweep clean. Then a decode step at batch 4 for Q8
                and Q4 on bf16 KV (CUDA events, busy time, idle share and
                launches a step by the profiler).
- 11. runtime_paper_models — phase 6's loop over each of the two at full
-               width, its steps priced from its own profile: a live Q8 -> Q4
+ 11. runtime_paper_models — phase 6's loop, over SHORT_RAMP, for each of
+               the two at full width, priced from its own profile: a live Q8 -> Q4
                swap, a low-power mode, the four model kernels and sim_scores
                launched, each model a main path of its own.
+ 12. serve_qwen25_32b — full-width qwen2.5-32b (64 layers, d 5120, 40 query
+               heads over 8 KV heads, d_ff 27648), its trees drawn on the
+               card from seed 0 a layer slice at a time; the draw's peak
+               may rise at most DRAW_PEAK_SLACK above the finished trees.
+               Phase 10's paths: the two paged paths, the dense bf16 path
+               teacher-forced onto the paged engine within
+               ENGINE_LOGIT_REL, and Q8 / Q4 decode steps at batch 4.
+ 13. fleet   — `build_fleet` over a clean region (an edge pod) and a dirty
+               one (a pod), their engines full-width carboncall-qwen2-7b
+               built lazily on the card, and `run_fleet(backend="engine")`
+               over FLEET_STEPS steps: every query served, an engine built
+               exactly where queries were routed, q8, paged, flash and
+               sim_scores launched (q4 wherever a pod swapped), no fallback.
+ 14. workers — two raw-mode worker processes of full-width
+               carboncall-qwen2-7b on the card (`launch_workers`, spawned):
+               six temperature-0 requests over the wire, a swap op,
+               `EngineStats.merge`, each worker's ready seconds; after
+               shutdown an in-process twin from the first worker's spec
+               and seed must emit its tokens, token for token; a worker on
+               a device ordinal the machine lacks must make
+               `launch_workers` raise.
+ 15. serve_launcher — `repro_torch.launch.serve.main` as a user runs it
+               (`python -m repro_torch.launch.serve` with LAUNCHER_FLAGS):
+               in-process at full width on the card, then with
+               `--workers 2`; each must serve every query with its token
+               count, switch variants at least once, and print the same
+               switch and `total carbon` lines as the launcher run
+               in-process with `--device cpu` (the reduced config; those
+               lines read no tokens). The in-process run is the main path:
+               q8, q4, paged and flash attention and sim_scores must launch.
+Every phase starts with at most PHASE_START_MAX of device memory allocated
+(after a garbage collection), or the run fails naming the phase before it;
+each phase's start and peak are printed.
 The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
-carboncall-qwen2-7b's five (K, N) and hermes2-pro-8b / llama3.1-8b's six
-for M in QM_ROWS (both regimes and their
+carboncall-qwen2-7b's five (K, N), hermes2-pro-8b / llama3.1-8b's six and
+qwen2.5-32b's five for M in QM_ROWS (both regimes and their
 edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
 twice with bit-identical results; it includes sim_scores, at the runtime's index
 (N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 2, 3 and 8 sentences, and
@@ -150,7 +183,7 @@ then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
 bit-identical repeats,
 timed by device time against the faster of two SDPA calls.
 The line before the last is the `kernels` JSON record (launches summed over
-the main paths of phases 4 to 11); the last line is
+the main paths of phases 4 to 15); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -176,6 +209,9 @@ QM_ROWS = (1, 4, 8, 16, 17, 64, 512)
 # 128288 = 2004 x 64 + 32: its last 64-column tile is half full
 QM_PAPER_SHAPES = [(4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),
                    (4096, 128288), (4096, 128256)]
+# qwen2.5-32b: wq/wo, wk/wv, wg/wu, down (K 27648), lm_head
+QM_QWEN25_SHAPES = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120),
+                    (5120, 152064)]
 QM_MAMBA_SHAPES = [(1024, 2048), (1024, 128), (1024, 32),
                    (2048, 1024)]  # mamba2-370m: wz/wx, wb/wc, wdt, out_proj
 QM_MAMBA_ROWS = (4, 512, 2048)  # the serve path's decode and two admissions
@@ -221,7 +257,10 @@ PAGED_CASES = [
     ("long", 8, 4, 7, 128, 16, 256,
      [4096, 4001, 3584, 4096, 3000, 4095, 3777, 4096], 0, 0.0),
     ("long", 32, 4, 7, 128, 16, 64,
-     [1024 - (37 * i) % 300 for i in range(32)], 0, 0.0)]
+     [1024 - (37 * i) % 300 for i in range(32)], 0, 0.0),
+    # qwen2.5-32b: 40 query heads over 8 KV heads (G 5); last, so the
+    # earlier cases draw the inputs they drew before it
+    ("qwen2.5", 4, 8, 5, 128, 16, 16, [1, 129, 200, 256], 0, 0.0)]
 FLASH_TOL = 0.03
 # Rows late in a long prompt average thousands of positions, so their |out|
 # is ~0.03 and FLASH_TOL alone would miss a dropped K/V tile there: each row
@@ -238,6 +277,8 @@ FLASH_CASES = [("serve", 4, S, S, 28, 4, 128, True, 0, 0.0)
     ("H256", 2, 200, 200, 8, 2, 256, True, 0, 0.0)] + [
     # hermes2-pro-8b / llama3.1-8b: 32 query heads over 8 KV heads (G 4)
     ("llama", 4, S, S, 32, 8, 128, True, 0, 0.0) for S in (64, 256)] + [
+    # qwen2.5-32b: 40 query heads over 8 KV heads (G 5)
+    ("qwen2.5", 4, S, S, 40, 8, 128, True, 0, 0.0) for S in (64, 256)] + [
     ("long", 1, 2048, 2048, 28, 4, 128, True, 0, 0.0),
     ("long", 1, 4096, 4096, 28, 4, 128, True, 0, 0.0)]
 FLASH_PRODUCT_HEADS = (16, 64, 112, 128, 256)   # every head_dim in configs/
@@ -264,6 +305,10 @@ SSD_SPLIT_PARTS = 2
 MAMBA_LOGIT_REL = 0.02          # of max |logit| (tests/test_torch_mamba2.py)
 # runtime phase: a clean grid, then a dirty one, 10-minute steps
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
+# runtime_mamba2 and runtime_paper_models run a shorter ramp (15 queries,
+# the swap at the 11th, a low-power mode): with phases 12-15 the full ramp
+# would take the whole run past half its time limit (PERF.md §6, PR 28)
+SHORT_RAMP = (2, 4)
 RUNTIME_QPH = 18.0
 # serve_spec_chunk: chunked windows of 256 over buckets up to 1024; spec at
 # k 2, k 4 from step SPEC_K4_AT, a swap to the draft variant at
@@ -314,6 +359,21 @@ DENSE_STEP_SEQS = (256, 2048)
 # serve_paper_models / runtime_paper_models: the paper's other two models,
 # each also the name of its profile in PAPER_MODELS
 PAPER_ARCHS = ("hermes2-pro-8b", "llama3.1-8b")
+# serve_qwen25_32b's model; every tree drawn on the card a layer slice at a
+# time may peak at most DRAW_PEAK_SLACK above the finished trees
+QWEN25_ARCH = "qwen2.5-32b"
+DRAW_PEAK_SLACK = 2 * 2**30
+# every phase must start with at most this much device memory allocated
+# (the phase before it freed its trees; small per-device scratch stays)
+PHASE_START_MAX = 2 * 2**30
+# fleet: two regions of one pod each, 12 ten-minute steps at 12 queries an
+# hour (lam 2 a step)
+FLEET_STEPS, FLEET_QPH = 12, 12.0
+# workers: the launcher's --workers engine, six temperature-0 requests
+WORKER_COUNT, WORKER_REQUESTS, WORKER_NEW = 2, 6, 8
+# serve_launcher: three queries 10 minutes apart switch variants once
+LAUNCHER_FLAGS = ("--queries", "3", "--minutes-per-query", "10",
+                  "--max-new-tokens", "4")
 # sources whose every kernel must show tensor-core instructions and no spill
 TENSOR_CORE_SOURCES = ("quant_matmul", "flash_attention", "paged_attention",
                        "ssd")
@@ -355,6 +415,65 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+class PhaseMemory:
+    """Device memory at every phase's edges. `run(name, fn)` collects
+    garbage first (engines sit in reference cycles: an executor's step-cost
+    hook, the counting wrappers the phases install, `_StepClock`'s patched
+    methods; only the cyclic collector frees them and so their trees),
+    prints the bytes allocated and reserved, fails the run naming the phase
+    before it if more than PHASE_START_MAX is still allocated, resets the
+    peak, runs the phase and prints its peak."""
+
+    def __init__(self):
+        self.prev = "build"
+
+    def run(self, name, fn, *args, **kw):
+        import torch
+        free_device("cuda")
+        t0 = time.perf_counter()
+        alloc = torch.cuda.memory_allocated()
+        log(f"memory at the start of {name}: {alloc / 2**30:.3f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / 2**30:.3f} GiB "
+            f"reserved")
+        if alloc > PHASE_START_MAX:
+            log_live_tensors()
+            fail(f"{name} starts with {alloc / 2**30:.3f} GiB allocated "
+                 f"(limit {PHASE_START_MAX / 2**30:.0f} GiB): "
+                 f"{self.prev} did not free its device memory")
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kw)
+        log(f"memory peak of {name}: "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB "
+            f"allocated; {time.perf_counter() - t0:.1f} s host clock")
+        self.prev = name
+        return out
+
+
+def free_device(device):
+    """Collect garbage, then hand the freed blocks back: engines sit in
+    reference cycles, so `del` alone does not free their trees."""
+    import gc
+    gc.collect()
+    if device == "cuda":
+        import torch
+        torch.cuda.empty_cache()
+
+
+def log_live_tensors(n: int = 8):
+    """The largest CUDA tensors the collector can still reach, with the
+    types of the objects that refer to them."""
+    import gc
+    import torch
+    live = [o for o in gc.get_objects()
+            if isinstance(o, torch.Tensor) and o.is_cuda]
+    live.sort(key=lambda t: t.untyped_storage().nbytes(), reverse=True)
+    for t in live[:n]:
+        owners = sorted({type(r).__name__ for r in gc.get_referrers(t)})
+        log(f"  live: {tuple(t.shape)} {t.dtype} "
+            f"{t.untyped_storage().nbytes() / 2**20:.1f} MiB, referred to "
+            f"by {owners}")
 
 
 # ---------------------------------------------------------------------------
@@ -447,7 +566,8 @@ class KernelRecord:
 
 def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
     """q8 and q4 against their plain versions at carboncall-qwen2-7b's five
-    (K, N) and hermes2-pro-8b / llama3.1-8b's six for M in QM_ROWS (decode
+    (K, N), hermes2-pro-8b / llama3.1-8b's six and qwen2.5-32b's five (K
+    27648 among them) for M in QM_ROWS (decode
     rows, both regimes' edges, prefill rows) and at mamba2-370m's four
     (K, N) for M in QM_MAMBA_ROWS (the serve path's decode and two
     admissions); every case is launched twice and the two results must be
@@ -463,6 +583,8 @@ def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
         sums = {M: [0.0, 0.0, 0.0, 0.0] for M in (timed_m, prefill_m)}
         for label, shapes, rows in (("qwen2", QM_SHAPES, QM_ROWS),
                                     ("hermes/llama", QM_PAPER_SHAPES,
+                                     QM_ROWS),
+                                    ("qwen2.5-32b", QM_QWEN25_SHAPES,
                                      QM_ROWS),
                                     ("mamba2", QM_MAMBA_SHAPES,
                                      QM_MAMBA_ROWS)):
@@ -583,8 +705,9 @@ def check_paged(records, baselines=()):
     shape (B 4, block size 16, 16-block chains, a dead row on scratch block
     0) with windows 0 and 48 and a softcap, block size 32, llama-3.1-8b's
     heads (K 8, G 4), MQA (K 1, G 8), head dims 64 and 256, the reduced
-    configs' 16 and zamba2-7b's 112 (MHA, K 32), and long chains
-    (B 8 x ~4096 and B 32 x ~1024 positions). Each case is held to
+    configs' 16 and zamba2-7b's 112 (MHA, K 32), long chains
+    (B 8 x ~4096 and B 32 x ~1024 positions) and qwen2.5-32b's heads (K 8,
+    G 5) at the serving shape. Each case is held to
     PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row, PAGED_ROW_TOL, at the
     planned split, at one split and at nb splits, and launched twice with
     bit-identical results. Times by device time (torch.profiler, the kernel
@@ -903,7 +1026,8 @@ def check_flash(records, baseline=None):
     """Prefill attention against its plain version at FLASH_CASES: the
     serve path's cold prefills (carboncall-qwen2-7b's 28 x 128 heads over 4
     kv heads, B = 4 at the 32/64/128 prompt buckets and max_seq 256;
-    hermes2-pro-8b / llama3.1-8b's 32 x 128 heads over 8 at 64 and 256), the
+    hermes2-pro-8b / llama3.1-8b's 32 x 128 heads over 8 and qwen2.5-32b's
+    40 x 128 over 8, each at 64 and 256), the
     kernel's other options (window + softcap, q_offset with Sq < Skv,
     non-causal with Sq != Skv, head dims 64 and 256, Skv not a multiple of
     the 64-key tile) and long prompts, within FLASH_TOL and, row by row,
@@ -1450,23 +1574,37 @@ def profile_window(step, label, n: int = 3):
 
 def draw_variants(cfg, device, label):
     """Full-width Q8 and Q4 trees of `cfg`, random from seed 0 on a
-    generator on `device` and quantized there leaf by leaf; logs the host
-    seconds and the device memory allocated."""
+    generator on `device` and quantized there a layer slice at a time; logs
+    the host seconds, the device memory allocated after the draw and the
+    draw's peak. On the card, fails if the peak rose more than
+    DRAW_PEAK_SLACK above what the finished trees hold."""
     import torch
     from repro_torch.models import get_model
     from repro_torch.quant.qtensor import init_quantized
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cuda = device == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     sync()
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     gen = torch.Generator(device=device).manual_seed(0)
     variants = init_quantized(get_model(cfg).param_spec(), ("q8", "q4"), gen,
                               device)
     sync()
-    mem = (f"; {torch.cuda.memory_allocated() / 2**30:.1f} GiB allocated"
-           if device == "cuda" else "")
+    mem = ""
+    if cuda:
+        after = torch.cuda.memory_allocated()
+        peak = torch.cuda.max_memory_allocated()
+        mem = (f"; {after / 2**30:.2f} GiB allocated after the draw, its "
+               f"peak {peak / 2**30:.2f} GiB ({(peak - after) / 2**30:.2f} "
+               f"GiB above the finished trees)")
     log(f"{label}: {cfg.name} ({cfg.num_layers} layers, d={cfg.d_model}) "
         f"q8+q4 weights made on {device} in {time.perf_counter() - t0:.1f} s "
         f"(host clock){mem}")
+    if cuda and peak - after > DRAW_PEAK_SLACK:
+        fail(f"{label}: the draw peaked {(peak - after) / 2**30:.2f} GiB "
+             f"above the finished trees (limit "
+             f"{DRAW_PEAK_SLACK / 2**30:.0f} GiB)")
     return variants
 
 
@@ -1495,7 +1633,6 @@ def phase_serve(device="cuda", model_cfg=None):
     the paged engine: `serve_paged`'s two paths, then decode steps for Q8 /
     Q4 on bf16 / int8 KV and cold prefills at 4 x 64 and 4 x 256 (on the
     card only). Returns the paths' counts summed and the step times."""
-    import torch
     from repro_torch.common.registry import get_arch
     cfg = model_cfg if model_cfg is not None \
         else get_arch("carboncall-qwen2-7b")
@@ -1510,8 +1647,7 @@ def phase_serve(device="cuda", model_cfg=None):
         for S in (64, 256):
             prefill_attention_share(cfg, variants["q8"], "q8", S=S)
     del variants
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return launches, times
 
 
@@ -1680,8 +1816,7 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
     if not ok:
         fail(f"serve_mamba2: kernel prefill differs from the plain one ({err})")
     del variants
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return launches
 
 
@@ -1798,15 +1933,19 @@ def run_runtime(label, ci, device="cuda", model_cfg=None, config=None,
     return recs, ex, launches, ks
 
 
+def ramp_ci(clean: int, dirty: int):
+    """`clean` ten-minute steps at RAMP_CI[0], then `dirty` at RAMP_CI[1]."""
+    return [RAMP_CI[0]] * clean + [RAMP_CI[1]] * dirty
+
+
 def phase_runtime(device="cuda", model_cfg=None, profile="qwen2-7b",
-                  label="runtime"):
-    """The runtime over a clean-then-dirty CI ramp (priced from
-    `PAPER_MODELS[profile]`): the governor must reach a low-power mode, the
-    switcher must swap Q8 -> Q4 live, and the four model kernels must
+                  label="runtime", ramp=(RAMP_CLEAN, RAMP_DIRTY)):
+    """The runtime over a clean-then-dirty CI ramp of `ramp` steps (priced
+    from `PAPER_MODELS[profile]`): the governor must reach a low-power mode,
+    the switcher must swap Q8 -> Q4 live, and the four model kernels must
     launch. Returns this path's counts."""
-    import torch
     from repro_torch.core import ORIN_MODES
-    ci = [RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY
+    ci = ramp_ci(*ramp)
     recs, ex, launches, _ = run_runtime(label, ci, device, model_cfg,
                                         profile=profile)
     mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
@@ -1820,8 +1959,7 @@ def phase_runtime(device="cuda", model_cfg=None, profile="qwen2-7b",
         if idle:
             fail(f"{label}: kernels never launched on this path: {idle}")
     del ex
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return launches
 
 
@@ -2183,7 +2321,6 @@ def phase_serve_spec_chunk(device="cuda", model_cfg=None):
     launch counters set to 0 just before it and read just after: the
     chunked engine, the spec engine on bf16 and on int8 KV, the runtime.
     Returns the paths' counts summed."""
-    import torch
     from repro_torch import kernels
     from repro_torch.common.registry import get_arch
     from repro_torch.serving import EngineConfig, SpecDecodeConfig
@@ -2248,8 +2385,7 @@ def phase_serve_spec_chunk(device="cuda", model_cfg=None):
             f"{st.accept_rate:.3f}")
         del eng
     del variants
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
 
     # -- the runtime over a chunked, speculative executor -------------------
     config = EngineConfig(max_batch=2, prefill_chunk=RUNTIME_CHUNK,
@@ -2268,8 +2404,7 @@ def phase_serve_spec_chunk(device="cuda", model_cfg=None):
         fail("runtime spec+chunk: fewer than two draft lengths, or no spec "
              "or chunk step")
     del ex
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
 
 
@@ -2355,7 +2490,6 @@ def phase_serve_dense(device="cuda", model_cfg=None):
     the dense chunked engine against the dense monolithic one. Then dense
     and paged decode steps side by side. Returns the paths' counts
     summed."""
-    import torch
     from repro_torch import kernels
     from repro_torch.common.registry import get_arch
     cfg = model_cfg if model_cfg is not None \
@@ -2375,8 +2509,7 @@ def phase_serve_dense(device="cuda", model_cfg=None):
                 dense_decode_step_ms(cfg, variants[fmt], "bf16",
                                      f"{fmt} bf16-KV", max_seq)
     del variants
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return launches
 
 
@@ -2387,15 +2520,14 @@ def phase_serve_dense(device="cuda", model_cfg=None):
 
 def phase_runtime_mamba2(device="cuda", model_cfg=None):
     """The runtime phase's loop over full-width mamba2-370m (unless
-    `model_cfg` says otherwise) on the dense engine: the same CI ramp,
-    workload and catalog; the executor's weights are drawn on a generator on
-    `device`. A main path of its own: ssd_bshp (num_layers launches a
-    prefill step), q8_matmul, q4_matmul and sim_scores must launch. Returns
-    this path's counts."""
-    import torch
+    `model_cfg` says otherwise) on the dense engine: the same workload and
+    catalog over SHORT_RAMP; the executor's weights are drawn on a
+    generator on `device`. A main path of its own: ssd_bshp (num_layers
+    launches a prefill step), q8_matmul, q4_matmul and sim_scores must
+    launch, with a live swap. Returns this path's counts."""
     from repro_torch.common.registry import get_arch
     cfg = model_cfg if model_cfg is not None else get_arch("mamba2-370m")
-    ci = [RAMP_CI[0]] * RAMP_CLEAN + [RAMP_CI[1]] * RAMP_DIRTY
+    ci = ramp_ci(*SHORT_RAMP)
     recs, ex, launches, _ = run_runtime("runtime_mamba2", ci, device, cfg)
     eng = ex.engine
     mix = {v: sum(r.variant == v for r in recs) for v in ("q8", "q4")}
@@ -2414,8 +2546,7 @@ def phase_runtime_mamba2(device="cuda", model_cfg=None):
         fail(f"runtime_mamba2: ssd_bshp launched {launches['ssd_bshp']} "
              f"times for {prefills} prefills of {cfg.num_layers} layers")
     del ex, eng
-    if device == "cuda":
-        torch.cuda.empty_cache()
+    free_device(device)
     return launches
 
 
@@ -2424,29 +2555,32 @@ def phase_runtime_mamba2(device="cuda", model_cfg=None):
 # ---------------------------------------------------------------------------
 
 
+def serve_model(cfg, device, label):
+    """One full-width model, its trees drawn on `device` from seed 0
+    (`draw_variants`) and freed at the end: phase
+    4's two paged paths, one dense path on bf16 KV teacher-forced onto the
+    paged engine's tokens, and (on the card) a decode step at batch 4 for
+    Q8 and Q4 on bf16 KV. Returns the paths' counts, one dict a path."""
+    variants = draw_variants(cfg, device, label)
+    per_path = [serve_paged(cfg, variants, device, label),
+                dense_vs_paged(cfg, variants, "bf16", device)]
+    if device == "cuda":
+        for fmt in ("q8", "q4"):
+            decode_step_ms(cfg, variants[fmt], "bf16",
+                           f"{cfg.name} {fmt} bf16-KV")
+    del variants
+    free_device(device)
+    return per_path
+
+
 def phase_serve_paper_models(device="cuda", model_cfgs=None):
-    """Each of PAPER_ARCHS (or `model_cfgs`) at full width, one at a time,
-    its trees freed before the next: phase 4's two paged paths, one dense
-    path on bf16 KV teacher-forced onto the paged engine's tokens, and (on
-    the card) a decode step at batch 4 for Q8 and Q4 on bf16 KV. Returns
-    the paths' counts summed over both models."""
-    import torch
+    """`serve_model` over each of PAPER_ARCHS (or `model_cfgs`), one at a
+    time. Returns the paths' counts summed over both models."""
     from repro_torch import kernels
     from repro_torch.common.registry import get_arch
     cfgs = model_cfgs or [get_arch(a) for a in PAPER_ARCHS]
-    per_path = []
-    for cfg in cfgs:
-        label = f"serve_paper_models {cfg.name}"
-        variants = draw_variants(cfg, device, label)
-        per_path.append(serve_paged(cfg, variants, device, label))
-        per_path.append(dense_vs_paged(cfg, variants, "bf16", device))
-        if device == "cuda":
-            for fmt in ("q8", "q4"):
-                decode_step_ms(cfg, variants[fmt], "bf16",
-                               f"{cfg.name} {fmt} bf16-KV")
-        del variants
-        if device == "cuda":
-            torch.cuda.empty_cache()
+    per_path = [p for cfg in cfgs for p in serve_model(
+        cfg, device, f"serve_paper_models {cfg.name}")]
     launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
     log(f"serve_paper_models: main-path launches, {len(per_path)} paths "
         f"summed: {launches}")
@@ -2454,9 +2588,9 @@ def phase_serve_paper_models(device="cuda", model_cfgs=None):
 
 
 def phase_runtime_paper_models(device="cuda", model_cfgs=None):
-    """Phase 6's loop (the same CI ramp, workload and catalog) over each of
-    PAPER_ARCHS (or `model_cfgs`) at full width, priced from its own
-    profile: each a main path of its own with a live Q8 -> Q4 swap, a
+    """Phase 6's loop (the same workload and catalog, over SHORT_RAMP) over
+    each of PAPER_ARCHS (or `model_cfgs`) at full width, priced from its
+    own profile: each a main path of its own with a live Q8 -> Q4 swap, a
     low-power mode, and the four model kernels and sim_scores launched.
     Returns the paths' counts summed."""
     from repro_torch import kernels
@@ -2466,9 +2600,296 @@ def phase_runtime_paper_models(device="cuda", model_cfgs=None):
     for arch, cfg in zip(PAPER_ARCHS, cfgs):
         label = f"runtime_paper_models {cfg.name}"
         per_path.append(_path_launches(
-            label, phase_runtime(device, cfg, profile=arch, label=label),
+            label, phase_runtime(device, cfg, profile=arch, label=label,
+                                 ramp=SHORT_RAMP),
             MODEL_KERNELS + ("sim_scores",), device))
     return {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+
+
+# ---------------------------------------------------------------------------
+# 12. qwen2.5-32b at full width
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_qwen25_32b(device="cuda", model_cfg=None):
+    """`serve_model` over full-width qwen2.5-32b (unless `model_cfg` says
+    otherwise), its trees drawn a layer slice at a time: on the card the
+    draw may peak at most DRAW_PEAK_SLACK above the finished trees. Returns
+    the paths' counts summed."""
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    cfg = model_cfg if model_cfg is not None else get_arch(QWEN25_ARCH)
+    per_path = serve_model(cfg, device, f"serve_qwen25_32b {cfg.name}")
+    launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+    log(f"serve_qwen25_32b: main-path launches, {len(per_path)} paths "
+        f"summed: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 13. the carbon-aware fleet
+# ---------------------------------------------------------------------------
+
+
+def phase_fleet(device="cuda", model_cfg=None):
+    """`build_fleet` over two regions of one pod each (a clean grid at half
+    week 1's carbon intensity with an edge pod, a dirty one at 1.5x with a
+    pod), engines at full-width carboncall-qwen2-7b (unless `model_cfg`
+    says otherwise) on `device`, then `run_fleet(backend="engine")` over
+    FLEET_STEPS ten-minute steps at FLEET_QPH queries an hour. A main path
+    of its own: counters set to 0 just before the run, read just after.
+    Every query must be served; a pod's engine must be built exactly when
+    a query was routed to it; q8, paged and flash attention and sim_scores
+    (once per retrieval) must launch, and q4 wherever a pod swapped; no
+    step may fall back. Returns this path's counts."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.core.fleet import (FleetSpec, RegionSpec, build_fleet,
+                                        run_fleet)
+    from repro_torch.data.workload import FunctionCallWorkload, build_catalog
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = model_cfg if model_cfg is not None \
+        else get_arch("carboncall-qwen2-7b")
+    spec = FleetSpec(regions=(
+        RegionSpec("clean", "week1", 0.5, (("edge", 1),)),
+        RegionSpec("dirty", "week1", 1.5, (("pod", 1),))))
+    catalog = build_catalog(32, seed=0)
+    fleet = build_fleet(spec, catalog=catalog, seed=0, device=device,
+                        model_cfg=cfg)
+    sel = fleet.pods[0].runtime.selector
+    workload = FunctionCallWorkload(catalog, seed=3)
+    retrievals, arrivals = [0], [0]
+    retrieve, sample = sel.retrieve, workload.sample
+
+    def counted_retrieve(query):
+        retrievals[0] += 1
+        return retrieve(query)
+
+    def counted_sample():
+        arrivals[0] += 1
+        return sample()
+
+    sel.retrieve, workload.sample = counted_retrieve, counted_sample
+    sync()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    recs = run_fleet(fleet, workload, n_steps=FLEET_STEPS,
+                     queries_per_hour=FLEET_QPH, seed=0, backend="engine")
+    sync()
+    host_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    served = sum(len(r) for r in recs.values())
+    log(f"fleet: {cfg.name} engines on {device}, {served} of {arrivals[0]} "
+        f"queries served over {FLEET_STEPS} steps in {host_s:.1f} s host "
+        f"clock (engine builds included); {retrievals[0]} retrievals; "
+        f"region split (queries routed) "
+        f"{ {r.name: r.routed for r in fleet.regions} }; launches={launches}")
+    swapped = False
+    for pod in fleet.pods:
+        mine = recs[pod.pod_id]
+        built = pod.client is not None
+        ex = pod.runtime.executor
+        swaps = ex.swap_count if built else 0
+        swapped |= swaps > 0
+        modes = {m: sum(r.mode_idx == m for r in mine)
+                 for m in sorted({r.mode_idx for r in mine})}
+        mix = {v: sum(r.variant == v for r in mine) for v in ("q8", "q4")}
+        fallbacks = ex.engine.kernel_fallbacks if built else 0
+        log(f"  fleet pod {pod.pod_id} ({pod.region}/{pod.profile}): "
+            f"{len(mine)} queries served, engine built {built}, swaps "
+            f"{swaps}, mode residency {modes}, variant mix {mix}, "
+            f"kernel_fallbacks {fallbacks}")
+        if built != bool(mine):
+            fail(f"fleet pod {pod.pod_id}: engine built {built} with "
+                 f"{len(mine)} queries routed to it")
+        if device == "cuda" and fallbacks:
+            fail(f"fleet pod {pod.pod_id}: kernel_fallbacks = {fallbacks}")
+    if served != arrivals[0] or served <= 0:
+        fail(f"fleet: {served} of {arrivals[0]} queries served")
+    stats = fleet.engine_stats()
+    log(f"  fleet EngineStats.merge: admitted={stats.admitted} "
+        f"tokens={stats.tokens_emitted} swaps={stats.swap_count}")
+    expect = ("q8_matmul", "paged_attention", "flash_attention",
+              "sim_scores") + (("q4_matmul",) if swapped else ())
+    _path_launches("fleet", launches, expect, device)
+    if device == "cuda" and launches["sim_scores"] != retrievals[0]:
+        fail(f"fleet: sim_scores launched {launches['sim_scores']} times "
+             f"for {retrievals[0]} retrievals")
+    del fleet, sel
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 14. worker processes behind the control protocol
+# ---------------------------------------------------------------------------
+
+
+def phase_workers(device="cuda", model_cfg=None):
+    """`launch_workers` with WORKER_COUNT raw-mode specs of full-width
+    carboncall-qwen2-7b (unless `model_cfg` says otherwise) on `device`, the
+    serve launcher's `--workers` shape: WORKER_REQUESTS temperature-0
+    requests round-robin across them over the wire, a `swap` op, the
+    workers' `EngineStats.merge`; then the workers shut down and an
+    in-process `EngineActor` built from the first worker's spec and seed
+    serves that worker's requests, whose tokens must equal the worker's,
+    token for token. On the card, a worker given a device ordinal the
+    machine lacks must make `launch_workers` raise. This path's counts are
+    the workers' (over the wire) and the twin's, summed."""
+    import dataclasses
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.launch.workers import (EngineActor, launch_workers,
+                                            shutdown_workers)
+    from repro_torch.serving import (EngineConfig, EngineStats,
+                                     ProtocolError, SessionRequest,
+                                     WorkerSpec, session_request_to_wire)
+    cfg = model_cfg if model_cfg is not None \
+        else get_arch("carboncall-qwen2-7b")
+    econfig = EngineConfig(max_batch=4, max_seq=128)
+    specs = [WorkerSpec(config=econfig, model_cfg=dataclasses.asdict(cfg),
+                        seed=w, label=f"serve-w{w}")
+             for w in range(WORKER_COUNT)]
+    prompts = _requests(0, cfg.vocab_size)[:WORKER_REQUESTS]
+    mine = {w: [SessionRequest(prompt=p, max_new_tokens=WORKER_NEW,
+                               eos_id=-1, temperature=0.0)
+                for i, p in enumerate(prompts) if i % WORKER_COUNT == w]
+            for w in range(WORKER_COUNT)}
+    t0 = time.perf_counter()
+    workers = launch_workers(specs, device=device)
+    log(f"workers: {len(workers)} raw-mode workers of {cfg.name} on "
+        f"{device} ready in {time.perf_counter() - t0:.1f} s host clock")
+    try:
+        for w in workers:
+            r = w.ready_s
+            log(f"  worker {w.label}: ready after spawn {r['spawn']:.1f} s, "
+                f"device start-up {r['device']:.1f} s, engine build and "
+                f"weight draw {r['build']:.1f} s (host clocks)")
+        results = {}
+        for k, w in enumerate(workers):
+            results[k] = w.settle([w.submit(r) for r in mine[k]])
+            bad = [r.rid for r in results[k] if r.status != "done"
+                   or len(r.output) != WORKER_NEW]
+            if bad:
+                fail(f"workers: {w.label} requests not done with "
+                     f"{WORKER_NEW} tokens: {bad}")
+        swap = workers[-1].call("swap", variant="q4")
+        stats = [w.stats() for w in workers]
+        agg = EngineStats.merge(stats)
+        counts = [w.call("launches")["launches"] for w in workers]
+        log(f"  workers: swap over the wire -> {swap}; EngineStats.merge "
+            f"v{agg.schema_version}: admitted={agg.admitted} "
+            f"tokens={agg.tokens_emitted} swaps={agg.swap_count}; launches "
+            f"by worker {counts}")
+        if agg.admitted != len(prompts) or agg.swap_count != 1 or \
+                agg.tokens_emitted != len(prompts) * WORKER_NEW:
+            fail(f"workers: merged stats admitted={agg.admitted} "
+                 f"tokens={agg.tokens_emitted} swaps={agg.swap_count}")
+    finally:
+        shutdown_workers(workers)
+    if any(w.proc.is_alive() for w in workers):
+        fail("workers: a worker process outlived its shutdown")
+    kernels.reset_launch_counts()
+    twin = EngineActor(specs[0], device=device)
+    rids = [twin.handle("submit", {"request": session_request_to_wire(r)})
+            ["rid"] for r in mine[0]]
+    out = twin.handle("settle", {"rids": rids})["results"]
+    twin_launches = kernels.launch_counts()
+    got = [list(r.output) for r in results[0]]
+    want = [list(r["output"]) for r in out]
+    log(f"  workers: {specs[0].label}'s {len(got)} streams against an "
+        f"in-process twin from its spec and seed: "
+        f"{'equal, token for token' if got == want else 'DIFFER'}; twin "
+        f"launches {twin_launches}")
+    if got != want:
+        fail(f"workers: worker tokens {got} differ from the twin's {want}")
+    launches = {k: sum(c[k] for c in counts) + twin_launches[k]
+                for k in kernels.KERNELS}
+    _path_launches("workers", launches,
+                   ("q8_matmul", "paged_attention", "flash_attention"),
+                   device)
+    del twin
+    if device == "cuda":
+        import torch
+        bad = f"cuda:{torch.cuda.device_count()}"
+        try:
+            launch_workers(specs[:1], device=bad, timeout=300.0)
+        except ProtocolError as e:
+            log(f"  workers: a worker on {bad} makes launch_workers raise: "
+                f"{str(e)[:160]}")
+        else:
+            fail(f"workers: a worker on {bad} came up")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 15. the serve launcher
+# ---------------------------------------------------------------------------
+
+
+def run_launcher(*flags):
+    """`repro_torch.launch.serve.main` on LAUNCHER_FLAGS plus `flags`; logs
+    and returns its printed lines."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve.main([*LAUNCHER_FLAGS, *flags])
+    lines = out.getvalue().splitlines()
+    for ln in lines:
+        log(f"  {ln}")
+    return lines
+
+
+def carbon_lines(lines):
+    """The launcher's lines that read no tokens: its variant switches and
+    its `total carbon` line."""
+    return [ln.strip() for ln in lines
+            if ">> variant switch" in ln or ln.startswith("[serve] total")]
+
+
+def phase_serve_launcher(device="cuda"):
+    """The serve launcher (`python -m repro_torch.launch.serve`) on
+    `device` with LAUNCHER_FLAGS: in-process (the main path: counters set
+    to 0 just before, read just after), then with `--workers 2`. Each run
+    must give every query LAUNCHER_FLAGS' token count, switch variants at
+    least once, and print the switch and `total carbon` lines of the
+    launcher run in-process with `--device cpu`. Returns the in-process
+    run's counts."""
+    import re
+    import torch
+    from repro_torch import kernels
+    want = carbon_lines(run_launcher("--device", "cpu"))
+    new = LAUNCHER_FLAGS[LAUNCHER_FLAGS.index("--max-new-tokens") + 1]
+    runs = {"in-process": (), "--workers 2": ("--workers", "2")}
+    launches = None
+    for label, flags in runs.items():
+        sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+        sync()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        lines = run_launcher("--device", device, *flags)
+        sync()
+        counts = kernels.launch_counts()
+        tokens = [m.group(1) for ln in lines
+                  for m in [re.match(r"\[serve\] q\d+ .* tokens=(\d+) ", ln)]
+                  if m]
+        got = carbon_lines(lines)
+        log(f"serve_launcher {label} on {device}: "
+            f"{time.perf_counter() - t0:.1f} s host clock, tokens a query "
+            f"{tokens}, launches in this process {counts}")
+        if tokens != [new] * int(LAUNCHER_FLAGS[1]):
+            fail(f"serve_launcher {label}: tokens a query {tokens}, want "
+                 f"{new} for each of {LAUNCHER_FLAGS[1]} queries")
+        if got != want or not any("switch" in ln for ln in got):
+            fail(f"serve_launcher {label}: switch and carbon lines {got}, "
+                 f"want those of --device cpu {want} with a switch")
+        if launches is None:
+            launches = _path_launches(
+                "serve_launcher", counts, MODEL_KERNELS + ("sim_scores",),
+                device)
+    return launches
 
 
 def main():
@@ -2494,29 +2915,39 @@ def main():
     phase_build()
     from repro_torch import kernels
     records = {k: KernelRecord(k) for k in kernels.KERNELS}
+    memory = PhaseMemory()
     log("kernels: each against its plain version")
-    check_quant_matmul(records)
-    check_paged(records, tuple(args.paged_baseline))
-    check_paged_f64()
-    check_flash_products()
-    check_flash(records, args.flash_baseline)
-    check_sim_scores(records)
-    check_ssd(records)
-    serve_launches, _ = phase_serve()
-    mamba_launches = phase_serve_mamba2()
-    runtime_launches = phase_runtime()
-    spec_chunk_launches = phase_serve_spec_chunk()
-    dense_launches = phase_serve_dense()
-    runtime_mamba2_launches = phase_runtime_mamba2()
-    paper_launches = phase_serve_paper_models()
-    runtime_paper_launches = phase_runtime_paper_models()
-    per_phase = (serve_launches, mamba_launches, runtime_launches,
-                 spec_chunk_launches, dense_launches, runtime_mamba2_launches,
-                 paper_launches, runtime_paper_launches)
-    launches = {k: sum(p[k] for p in per_phase) for k in kernels.KERNELS}
-    log(f"main-path launches, serve, serve_mamba2, runtime, "
-        f"serve_spec_chunk, serve_dense, runtime_mamba2, serve_paper_models "
-        f"and runtime_paper_models summed: {launches}")
+    for check in (lambda: check_quant_matmul(records),
+                  lambda: check_paged(records, tuple(args.paged_baseline)),
+                  check_paged_f64, check_flash_products,
+                  lambda: check_flash(records, args.flash_baseline),
+                  lambda: check_sim_scores(records),
+                  lambda: check_ssd(records)):
+        memory.run("kernels", check)
+    per_phase = {
+        "serve": memory.run("serve", phase_serve)[0],
+        "serve_mamba2": memory.run("serve_mamba2", phase_serve_mamba2),
+        "runtime": memory.run("runtime", phase_runtime),
+        "serve_spec_chunk": memory.run("serve_spec_chunk",
+                                       phase_serve_spec_chunk),
+        "serve_dense": memory.run("serve_dense", phase_serve_dense),
+        "runtime_mamba2": memory.run("runtime_mamba2", phase_runtime_mamba2),
+        "serve_paper_models": memory.run("serve_paper_models",
+                                         phase_serve_paper_models),
+        "runtime_paper_models": memory.run("runtime_paper_models",
+                                           phase_runtime_paper_models),
+        "serve_qwen25_32b": memory.run("serve_qwen25_32b",
+                                       phase_serve_qwen25_32b),
+        "fleet": memory.run("fleet", phase_fleet),
+        "workers": memory.run("workers", phase_workers),
+        "serve_launcher": memory.run("serve_launcher", phase_serve_launcher),
+    }
+    memory.run("the end", lambda: None)
+    launches = {k: sum(p[k] for p in per_phase.values())
+                for k in kernels.KERNELS}
+    for name, counts in per_phase.items():
+        log(f"main-path launches of {name}: {counts}")
+    log(f"main-path launches, {', '.join(per_phase)} summed: {launches}")
     log(json.dumps({"kernels": [records[k].to_json(launches[k])
                                 for k in kernels.KERNELS]}))
     print(json.dumps({"ok": True, "device": {

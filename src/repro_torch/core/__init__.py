@@ -10,6 +10,7 @@ baselines.py  Default / Gorilla / LiS / LiS* comparison policies  (§IV)
 executor.py   analytic (sim) execution backend
 engine_executor.py  the port's ServingEngine-backed execution backend
 embedder.py   sentence encoder / cross-encoder substrate (in PyTorch)
+fleet.py      multi-pod carbon-aware routing (beyond-paper scale-out)
 
 Importing this package builds no kernel and makes no weights.
 """

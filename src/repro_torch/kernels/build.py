@@ -12,7 +12,8 @@ stale library. Building happens at first use — never at import
 `build_all` starts one nvcc per source at once and returns each build's
 `-Xptxas -v` report (registers, shared memory, spills), which also stays
 beside the library (`ptxas_report`); `load` returns the ctypes handle,
-building first if needed. A failed build raises.
+building first if needed, and `load_all` loads every library once. A
+failed build raises.
 """
 from __future__ import annotations
 
@@ -140,6 +141,15 @@ def load(name: str, signatures: Dict[str, List],
                 f.restype = ctypes.c_int
             _LIBS[key] = lib
         return lib
+
+
+def load_all() -> None:
+    """Build what is not built yet and load every library once, so a
+    process finds out at start-up, not at its first launch, that a kernel
+    cannot load (a worker process reports it in its ready reply)."""
+    build_all()
+    for name in SOURCES:
+        ctypes.CDLL(str(library_path(name)))
 
 
 def check(err: int, what: str):

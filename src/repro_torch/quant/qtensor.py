@@ -20,7 +20,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.common.tree import tree_map
-from repro_torch.sharding.param import ParamDef, init_leaf
+from repro_torch.sharding.param import ParamDef, draw_pieces, init_leaf
 
 Q4_GROUP = 128
 
@@ -61,7 +61,8 @@ def quantize(w: torch.Tensor, fmt: str, group: int = Q4_GROUP) -> QTensor:
     if fmt == "q8":
         amax = wf.abs().amax(dim=-2, keepdim=True)
         scale = torch.clamp_min(amax / 127.0, 1e-8)
-        q = torch.clamp(torch.round(wf / scale), -127, 127).to(torch.int8)
+        # in place after the division: one f32 temporary beside wf
+        q = (wf / scale).round_().clamp_(-127, 127).to(torch.int8)
         return QTensor(q=q, scale=scale, zero=None, fmt="q8", group=0)
     if fmt == "q4":
         *lead, din, dout = wf.shape
@@ -71,8 +72,8 @@ def quantize(w: torch.Tensor, fmt: str, group: int = Q4_GROUP) -> QTensor:
         lo = g.amin(dim=-2)                                   # (..., din/g, dout)
         hi = g.amax(dim=-2)
         scale = torch.clamp_min((hi - lo) / 15.0, 1e-8)
-        q = torch.clamp(torch.round((g - lo.unsqueeze(-2)) / scale.unsqueeze(-2)),
-                        0, 15)
+        q = (g - lo.unsqueeze(-2)).div_(scale.unsqueeze(-2)).round_() \
+            .clamp_(0, 15)
         q = q.to(torch.uint8).reshape(*lead, din, dout)
         packed = q[..., 0::2, :] | (q[..., 1::2, :] << 4)
         return QTensor(q=packed.contiguous(), scale=scale, zero=lo,
@@ -174,28 +175,30 @@ def quantize_tree(params, spec, fmt: str, group: int = Q4_GROUP):
         if _eligible(d) else p, spec, params)
 
 
-def _quantize_stacked(w: torch.Tensor, fmt: str, group: int) -> QTensor:
-    """`quantize` one stacked-layer slice at a time: the result is the same
-    bits (quantization reduces over d_in only) at a fraction of the f32
-    temporaries' peak memory."""
-    if w.ndim < 3:
-        return quantize(w, fmt, group)
-    parts = [quantize(w[i], fmt, group) for i in range(w.shape[0])]
-    return QTensor(q=torch.stack([p.q for p in parts]),
-                   scale=torch.stack([p.scale for p in parts]),
-                   zero=(None if parts[0].zero is None
-                         else torch.stack([p.zero for p in parts])),
-                   fmt=parts[0].fmt, group=parts[0].group)
+def _empty_like_def(node, device):
+    """Uninitialised tensors for a ParamDef, or for a QTensor of ParamDefs."""
+    if isinstance(node, QTensor):
+        return dataclasses.replace(
+            node, q=_empty_like_def(node.q, device),
+            scale=_empty_like_def(node.scale, device),
+            zero=None if node.zero is None
+            else _empty_like_def(node.zero, device))
+    return torch.empty(node.shape, dtype=node.torch_dtype, device=device)
 
 
 def init_quantized(spec, fmts: Sequence[str], generator: torch.Generator,
                    device, group: int = Q4_GROUP) -> Dict[str, dict]:
-    """Random weights straight into quantized variants, leaf by leaf: each
-    full-precision leaf is drawn, quantized into every format of `fmts` and
-    dropped, so no full-precision tree is ever whole on the device (the
-    full-width model's bf16 tree alone is 15 GB). Leaves that stay
-    unquantized (embedding, norms, biases) are shared between the variants.
-    Draw order is the tree order, as in `init_params`."""
+    """Random weights straight into quantized variants, piece by piece: each
+    leaf is drawn one layer slice (or column block) at a time
+    (`sharding.param.draw_pieces`), and each piece is quantized into every
+    format of `fmts` and written into that format's preallocated stacked
+    `q` / `scale` / `zero`. No full-precision leaf, and no full-precision
+    tree, is ever whole on the device: the extra peak over the finished
+    trees is one piece's f32 draw and its quantized parts. Leaves that stay
+    unquantized (embedding, norms, biases) are shared between the
+    variants. Draw order is the tree order, and the numbers are
+    `init_params`'s: a piece is cast to the leaf dtype before it is
+    quantized, as `quantize_tree` quantizes the cast leaf."""
     out: Dict[str, dict] = {f: {} for f in fmts}
 
     def walk(node, dests):
@@ -204,11 +207,30 @@ def init_quantized(spec, fmts: Sequence[str], generator: torch.Generator,
                 subs = [dst.setdefault(k, {}) for dst in dests]
                 walk(d, subs)
                 continue
-            w = init_leaf(d, generator, device)
-            for f, dst in zip(fmts, dests):
-                dst[k] = (_quantize_stacked(w, _qfmt(d, f, group), group)
-                          if f not in ("bf16", "none") and _eligible(d) else w)
-            del w
+            quant = [f not in ("bf16", "none") and _eligible(d) for f in fmts]
+            if not any(quant):
+                w = init_leaf(d, generator, device)
+                for dst in dests:
+                    dst[k] = w
+                continue
+            leaves = [_empty_like_def(_qdef(d, f, group), device) if q
+                      else _empty_like_def(d, device)
+                      for f, q in zip(fmts, quant)]
+            for idx, piece in draw_pieces(d, generator):
+                piece = piece.to(device)
+                for f, q, leaf in zip(fmts, quant, leaves):
+                    if not q:
+                        leaf[idx] = piece
+                        continue
+                    part = quantize(piece, _qfmt(d, f, group), group)
+                    leaf.q[idx] = part.q
+                    leaf.scale[idx] = part.scale
+                    if part.zero is not None:
+                        leaf.zero[idx] = part.zero
+                    del part
+                del piece
+            for dst, leaf in zip(dests, leaves):
+                dst[k] = leaf
 
     walk(spec, [out[f] for f in fmts])
     return out

@@ -1,21 +1,23 @@
-from repro_torch.serving.block_pool import BlockPool, PrefixCache, PrefixEntry
-from repro_torch.serving.engine import (EngineClient, Request, ServingEngine,
-                                        VirtualClock)
-from repro_torch.serving.invariants import check_invariants
-from repro_torch.serving.protocol import (PROTOCOL_VERSION,
-                                          STATS_SCHEMA_VERSION, EngineConfig,
-                                          EngineStats, ProtocolError,
-                                          QuerySpec, RequestResult,
-                                          SpecDecodeConfig, WorkerSpec,
-                                          session_request_from_wire,
-                                          session_request_to_wire)
-from repro_torch.serving.sampler import sample_tokens
-from repro_torch.serving.scheduler import (DeadlineExpiredError,
-                                           EngineStallError,
-                                           PoolExhaustedError,
-                                           RequestCancelledError,
-                                           RequestHandle, Scheduler,
-                                           SessionRequest)
+"""The port's serving stack. Names load on first use (a module `__getattr__`),
+so `repro_torch.serving.protocol` and the worker launcher
+(`repro_torch.launch.workers`) import without torch: a spawned worker
+imports them before it touches the card."""
+import importlib
+
+_MODULES = {
+    "block_pool": ("BlockPool", "PrefixCache", "PrefixEntry"),
+    "engine": ("EngineClient", "Request", "ServingEngine", "VirtualClock"),
+    "invariants": ("check_invariants",),
+    "protocol": ("PROTOCOL_VERSION", "STATS_SCHEMA_VERSION", "EngineConfig",
+                 "EngineStats", "ProtocolError", "QuerySpec", "RequestResult",
+                 "SpecDecodeConfig", "WorkerSpec",
+                 "session_request_from_wire", "session_request_to_wire"),
+    "sampler": ("sample_tokens",),
+    "scheduler": ("DeadlineExpiredError", "EngineStallError",
+                  "PoolExhaustedError", "RequestCancelledError",
+                  "RequestHandle", "Scheduler", "SessionRequest"),
+}
+_HOME = {name: mod for mod, names in _MODULES.items() for name in names}
 
 __all__ = ["BlockPool", "PrefixCache", "PrefixEntry", "ServingEngine",
            "EngineClient", "Request", "RequestHandle", "Scheduler",
@@ -26,3 +28,16 @@ __all__ = ["BlockPool", "PrefixCache", "PrefixEntry", "ServingEngine",
            "EngineStats", "ProtocolError", "QuerySpec", "RequestResult",
            "SpecDecodeConfig", "WorkerSpec", "session_request_from_wire",
            "session_request_to_wire", "check_invariants"]
+
+
+def __getattr__(name):
+    mod = _HOME.get(name)
+    if mod is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    value = getattr(importlib.import_module(f"{__name__}.{mod}"), name)
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

@@ -66,7 +66,7 @@ def test_every_module_imports_without_jax():
 def test_paper_model_configs_resolve_without_jax():
     """The paper's three models resolve from the port's registry with jax
     and the JAX package unimportable, and the registry lists them beside
-    mamba2-370m."""
+    mamba2-370m and qwen2.5-32b."""
     script = ("import sys\n"
               "sys.modules['jax'] = None\n"
               "sys.modules['repro'] = None\n"
@@ -74,7 +74,8 @@ def test_paper_model_configs_resolve_without_jax():
               "names = ('hermes2-pro-8b', 'llama3.1-8b', "
               "'carboncall-qwen2-7b')\n"
               "assert [get_arch(n).name for n in names] == list(names)\n"
-              "assert set(names) | {'mamba2-370m'} == set(list_archs())\n"
+              "assert set(names) | {'mamba2-370m', 'qwen2.5-32b'} == "
+              "set(list_archs())\n"
               "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", script], env=_env(),
                           cwd=REPO, capture_output=True, text=True,
@@ -194,3 +195,72 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=120)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+def test_worker_launcher_imports_without_torch():
+    """`repro_torch.launch.workers` (what a spawned worker imports before it
+    reaches its device) and `repro_torch.serving.protocol` import in a fresh
+    interpreter with torch unimportable (the lazy `repro_torch.serving`);
+    `core.fleet`, `launch.workers` and `launch.serve` import with jax and
+    the JAX package unimportable."""
+    no_torch = ("import sys\n"
+                "for m in ('torch', 'jax', 'repro'):\n"
+                "    sys.modules[m] = None\n"
+                "import repro_torch.launch.workers\n"
+                "import repro_torch.serving.protocol\n"
+                "from repro_torch.serving import EngineStats, WorkerSpec\n"
+                "assert WorkerSpec().to_wire()['v'] >= 1\n"
+                "loaded = [k for k, v in sys.modules.items() if v is not None]\n"
+                "assert not any(k.split('.')[0] in ('torch', 'jax') "
+                "for k in loaded), loaded\n"
+                "print('ok')\n")
+    no_jax = ("import sys\n"
+              "sys.modules['jax'] = None\n"
+              "sys.modules['repro'] = None\n"
+              "import repro_torch.core.fleet\n"
+              "import repro_torch.launch.workers\n"
+              "import repro_torch.launch.serve\n"
+              "print('ok')\n")
+    for script in (no_torch, no_jax):
+        proc = subprocess.run([sys.executable, "-c", script], env=_env(),
+                              cwd=REPO, capture_output=True, text=True,
+                              timeout=300)
+        assert proc.returncode == 0, proc.stderr
+        assert proc.stdout.strip() == "ok"
+
+
+def test_fleet_and_workers_default_to_the_card():
+    """An engine-backed fleet builds its first routed pod's engine
+    (`ensure_client`) on the card unless `build_fleet` was given
+    device="cpu", and so does its default tool selector; `launch_workers`
+    and `EngineActor` default to the card too. Without a card each raises;
+    with device="cpu" the fleet serves."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is visible: the default device is usable")
+    from repro_torch.core import ToolSelector
+    from repro_torch.core.fleet import (FleetSpec, RegionSpec, build_fleet,
+                                        run_fleet)
+    from repro_torch.data.workload import FunctionCallWorkload, build_catalog
+    from repro_torch.launch.workers import EngineActor, launch_workers
+    from repro_torch.serving import EngineConfig, WorkerSpec
+
+    spec = FleetSpec(regions=(RegionSpec("clean", pods=(("edge", 1),)),))
+    catalog = build_catalog(32, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        build_fleet(spec, catalog=catalog)
+    sel = ToolSelector(catalog, device="cpu")
+    fleet = build_fleet(spec, catalog=catalog, selector=sel)
+    assert fleet.pods[0].device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        run_fleet(fleet, FunctionCallWorkload(catalog, seed=0), n_steps=1,
+                  queries_per_hour=60.0, backend="engine")
+    fleet = build_fleet(spec, catalog=catalog, selector=sel, device="cpu")
+    recs = run_fleet(fleet, FunctionCallWorkload(catalog, seed=0),
+                     n_steps=1, queries_per_hour=60.0, backend="engine")
+    assert len(recs[0]) > 0 and fleet.built_pods() == fleet.pods
+    assert fleet.pods[0].runtime.executor.engine.device.type == "cpu"
+    wspec = WorkerSpec(config=EngineConfig(max_batch=2), label="card")
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        launch_workers([wspec])
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        EngineActor(wspec)

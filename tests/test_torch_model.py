@@ -293,3 +293,46 @@ def test_paper_model_configs_match_reference(hermes):
         want = _tree_leaves(rp)
         assert _tree_leaves(pp) == want
         assert _tree_leaves(drawn[fmt]) == want
+
+
+# ---------------------------------------------------------------------------
+# qwen2.5-32b: the configuration, and its reduced model against the reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def qwen25():
+    return _setup("qwen2.5-32b")
+
+
+def test_qwen25_32b_config_matches_reference():
+    """qwen2.5-32b at full width is the reference's config field for field
+    (64 layers, d 5120, 40 / 8 heads of 128, d_ff 27648, vocab 152064, qkv
+    bias, theta 1e6, untied head), with no field the port lacks; its
+    param_spec has the reference's leaves."""
+    _assert_same_model(ref_get_arch("qwen2.5-32b"), get_arch("qwen2.5-32b"))
+    full = get_arch("qwen2.5-32b")
+    assert (full.num_layers, full.d_model, full.num_heads, full.num_kv_heads,
+            full.resolved_head_dim, full.d_ff, full.vocab_size,
+            full.rope_theta, full.qkv_bias, full.tie_embeddings) == \
+        (64, 5120, 40, 8, 128, 27648, 152064, 1e6, True, False)
+    spec = _spec_leaves(get_model(full).param_spec())
+    assert spec == _spec_leaves(ref_get_model(
+        ref_get_arch("qwen2.5-32b")).param_spec())
+    assert spec["layers/mlp/wg"][0] == (64, 5120, 27648)
+    assert spec["lm_head"][0] == (5120, 152064)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_qwen25_prefill_logits_and_kv(qwen25, fmt, kv):
+    _prefill_logits_and_kv(qwen25, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_qwen25_prefix_window_logits(qwen25, fmt, kv):
+    _prefix_window_logits(qwen25, fmt, kv)
+
+
+@pytest.mark.parametrize("fmt,kv", CASES)
+def test_qwen25_decode_step_paged_logits(qwen25, fmt, kv):
+    _decode_step_paged_logits(qwen25, fmt, kv)

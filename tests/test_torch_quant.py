@@ -16,7 +16,8 @@ from repro_torch.models import get_model
 from repro_torch.quant.qtensor import (QTensor, dense, dequantize,
                                        init_quantized, quant_spec, quantize,
                                        quantize_tree, unpack_q4)
-from repro_torch.sharding.param import init_params
+from repro_torch.sharding import param as param_mod
+from repro_torch.sharding.param import ParamDef, init_params
 
 
 @pytest.mark.parametrize("fmt", ["q8", "q4"])
@@ -88,3 +89,88 @@ def test_tree_quantization_and_leafwise_init():
     assert streamed["q4"]["layers"]["mlp"]["wo"].fmt == "q4"
     w = streamed["q8"]["lm_head"]
     assert dequantize(w, torch.float32).shape == w.shape
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{k}/")
+        else:
+            yield prefix + k, v
+
+
+def _odd_spec():
+    """A stacked q8-only leaf whose layer slice (33 x 35 = 1155 elements) is
+    not a multiple of 16, a stacked leaf q4 can take, an unstacked head and
+    a bias that stays unquantized."""
+    return {"layers": {"w": ParamDef((3, 33, 35), ("layers", "embed", "mlp")),
+                       "u": ParamDef((2, 256, 40), ("layers", "embed", "mlp")),
+                       "b": ParamDef((3, 35), ("layers", None),
+                                     init="small")},
+            "head": ParamDef((256, 96), ("embed", "vocab"))}
+
+
+@pytest.mark.parametrize("piece_elems", [None, 4096])
+def test_per_layer_draw_matches_init_params(monkeypatch, piece_elems):
+    """The per-layer draw: `init_quantized` (each leaf drawn one layer slice,
+    or column block, at a time, quantized piece by piece into preallocated
+    trees) equals `init_params` + `quantize_tree` from one seed, leaf for
+    leaf, at the reduced carboncall-qwen2-7b and at a tree with a stacked
+    leaf whose layer slice is not a multiple of 16 elements; with a small
+    piece size the unstacked head is drawn in column blocks too."""
+    if piece_elems is not None:
+        monkeypatch.setattr(param_mod, "PIECE_ELEMS", piece_elems)
+        assert len(param_mod.leaf_pieces(_odd_spec()["head"])) == 6
+    specs = [_odd_spec(), get_model(
+        reduce_config(get_arch("carboncall-qwen2-7b"))).param_spec()]
+    for spec in specs:
+        params = init_params(spec, torch.Generator().manual_seed(9), "cpu")
+        drawn = init_quantized(spec, ("q8", "q4", "bf16"),
+                               torch.Generator().manual_seed(9), "cpu")
+        for fmt in ("q8", "q4", "bf16"):
+            want = dict(_leaves(quantize_tree(params, spec, fmt)))
+            got = dict(_leaves(drawn[fmt]))
+            assert got.keys() == want.keys()
+            for name, w in want.items():
+                g = got[name]
+                if isinstance(w, QTensor):
+                    assert isinstance(g, QTensor) and g.fmt == w.fmt, name
+                    for field in ("q", "scale", "zero"):
+                        a, b = getattr(w, field), getattr(g, field)
+                        assert (a is None) == (b is None), (name, field)
+                        if a is not None:
+                            assert a.dtype == b.dtype, (name, field)
+                            assert torch.equal(a, b), (name, field)
+                else:
+                    assert w.dtype == g.dtype and torch.equal(w, g), name
+        if spec is specs[0]:
+            # 33 rows hold no q4 group: q8 in the q4 tree
+            assert drawn["q4"]["layers"]["w"].fmt == "q8"
+            assert drawn["q4"]["layers"]["u"].fmt == "q4"
+
+
+def test_each_layer_slice_quantizes_to_its_qtensor():
+    """Each layer's QTensor of the drawn variants is `quantize` of that
+    layer's drawn slice, bit for bit, and the per-layer draw of a stacked
+    leaf is its layer slices drawn one after another from the generator."""
+    spec = _odd_spec()
+    params = init_params(spec, torch.Generator().manual_seed(2), "cpu")
+    drawn = init_quantized(spec, ("q8", "q4"),
+                           torch.Generator().manual_seed(2), "cpu")
+    gen = torch.Generator().manual_seed(2)
+    w = params["layers"]["w"]
+    std = 1.0 / 33 ** 0.5
+    for i in range(w.shape[0]):
+        x = torch.randn((33, 35), generator=gen, dtype=torch.float32)
+        assert torch.equal(w[i], x.mul_(std).to(torch.bfloat16))
+    for fmt in ("q8", "q4"):
+        for name in ("w", "u"):
+            leaf = params["layers"][name]
+            tree = drawn[fmt]["layers"][name]
+            for i in range(leaf.shape[0]):
+                want = quantize(leaf[i], tree.fmt)
+                got = tree[i]
+                assert torch.equal(got.q, want.q), (fmt, name, i)
+                assert torch.equal(got.scale, want.scale), (fmt, name, i)
+                if want.zero is not None:
+                    assert torch.equal(got.zero, want.zero), (fmt, name, i)

@@ -35,10 +35,12 @@ import pytest
 import torch
 
 import repro.core as RC
+import repro.core.fleet as RF
 from repro.common.hardware import ORIN_AGX as REF_ORIN
 from repro.data import workload as RW
 
 import repro_torch.core as PC
+import repro_torch.core.fleet as PF
 from repro_torch.bridge import params_from_numpy
 from repro_torch.common.hardware import ORIN_AGX, HardwareSpec
 from repro_torch.data import workload as PW
@@ -481,3 +483,275 @@ def test_executor_refuses_unported_configs(config, item):
     with pytest.raises(exc, match=match):
         PC.EngineExecutor(PC.PAPER_MODELS[PROFILE], ORIN_AGX, config=config,
                           device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the fleet: sim-backed in this process, engine-backed against a subprocess
+# ---------------------------------------------------------------------------
+
+
+def _fleet_pods(C, F, sel, hw, weeks):
+    """One sim pod a week in `weeks` (tests/test_fleet.py's `_pods`, on the
+    Orin board: the port has no TPU spec)."""
+    pods = []
+    for i, week in enumerate(weeks):
+        ex = C.SimExecutor(C.PAPER_MODELS[PROFILE], hw, seed=i)
+        rt = C.CarbonCallRuntime(
+            selector=sel, executor=ex, policy=C.POLICIES["carboncall"],
+            modes=C.ORIN_MODES, catalog_size=len(sel.catalog.tools), seed=i)
+        ci = C.ci_trace(week, seed=100 + i)
+        pods.append(F.PodState(pod_id=i, runtime=rt, ci_trace=ci,
+                               gov_state=rt.governor.init(ci[:144])))
+    return pods
+
+
+def _fleet_records(recs):
+    return {pid: [dataclasses.astuple(r) for r in rs]
+            for pid, rs in recs.items()}
+
+
+def _fleet_scenario(name, C, F, W, sel, hw):
+    """Run one of tests/test_fleet.py's topologies with one package's
+    modules; returns what the two packages must agree on."""
+    wl = W.FunctionCallWorkload(sel.catalog, seed=5)
+    out = {}
+    if name == "flat":
+        pods = _fleet_pods(C, F, sel, hw, ["week1", "week2", "week3",
+                                           "week4"])
+        out["records"] = _fleet_records(F.run_fleet(
+            pods, wl, n_steps=36, queries_per_hour=30.0))
+    elif name == "hierarchical":
+        spec = F.FleetSpec(regions=(
+            F.RegionSpec("clean", week="week2", ci_scale=0.5,
+                         pods=(("edge", 1), ("pod-dp4", 1))),
+            F.RegionSpec("dirty", week="week1", pods=(("edge", 2),))))
+        fleet = F.build_fleet(spec, catalog=sel.catalog, selector=sel,
+                              seed=0)
+        out["built"] = [p.pod_id for p in fleet.built_pods()]
+        out["shards"] = [p.engine_cfg.data_shards for p in fleet.pods]
+        out["records"] = _fleet_records(F.run_fleet(
+            fleet, wl, n_steps=36, queries_per_hour=30.0))
+        out["routed"] = [(r.name, r.routed) for r in fleet.regions]
+        pods = fleet.pods
+    elif name == "health":
+        pods = _fleet_pods(C, F, sel, hw, ["week1", "week1"])
+        sw = pods[0].runtime.switcher
+        sw.set_reference(100.0)
+        for t in range(0, 700, 60):
+            sw.observe(float(t), 10.0)
+        router = F.FleetRouter(pods)
+        router.mark_health()
+        out["healthy"] = [p.healthy for p in pods]
+        out["first"] = router.route(0).pod_id
+        out["records"] = _fleet_records(F.run_fleet(
+            pods, wl, n_steps=12, queries_per_hour=30.0, router=router))
+    elif name == "unhealthy":
+        pods = _fleet_pods(C, F, sel, hw, ["week1", "week2"])
+        for p in pods:
+            p.healthy = False
+        router = F.FleetRouter(pods)
+        out["routes"] = [router.route(i).pod_id for i in range(0, 288, 12)]
+    elif name == "diurnal":
+        pods = _fleet_pods(C, F, sel, hw, ["week1", "week2"])
+        out["records"] = _fleet_records(F.run_fleet(
+            pods, wl, n_steps=36, seed=1,
+            rate_fn=lambda t: W.diurnal_qph(60.0, t)))
+    elif name == "backlog":
+        pods = _fleet_pods(C, F, sel, hw, ["week1", "week2"])
+        pods[0].queue_s, pods[1].queue_s = 1500.0, 100.0
+        F.run_fleet(pods, wl, n_steps=2, queries_per_hour=0.0)
+        out["after2"] = [p.queue_s for p in pods]
+        F.run_fleet(pods, wl, n_steps=1, queries_per_hour=0.0)
+        out["after3"] = [p.queue_s for p in pods]
+    out["served"] = [p.served for p in pods]
+    out["queue_s"] = [p.queue_s for p in pods]
+    return out
+
+
+def _close_records(got, want):
+    """Per pod, the same records in the same order: every field equal, the
+    floats within ENGINE_REL_TOL."""
+    assert got.keys() == want.keys()
+    for pid in want:
+        assert len(got[pid]) == len(want[pid]), pid
+        for g, w in zip(got[pid], want[pid]):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert _rel_close(a, b), (pid, g, w)
+                else:
+                    assert a == b, (pid, g, w)
+
+
+FLEET_SCENARIOS = ("flat", "hierarchical", "health", "unhealthy", "diurnal",
+                   "backlog")
+
+
+@pytest.mark.parametrize("name", FLEET_SCENARIOS)
+def test_run_fleet_sim_matches_reference(selectors, name):
+    """`run_fleet` with sim pods in both packages, in this process: the
+    topologies of tests/test_fleet.py (a flat router over four weeks, a
+    FleetSpec of two regions under the hierarchical router with its
+    sharded profile degraded, health gating, every pod unhealthy, a
+    `diurnal_qph` rate, a backlog draining with no arrivals) give the same
+    routing and per-pod records within ENGINE_REL_TOL."""
+    ref_sel, sel = selectors
+    want = _fleet_scenario(name, RC, RF, RW, ref_sel, REF_ORIN)
+    got = _fleet_scenario(name, PC, PF, PW, sel, ORIN_AGX)
+    assert got.keys() == want.keys()
+    for key in want:
+        if key == "records":
+            _close_records(got[key], want[key])
+        elif key in ("queue_s", "after2", "after3"):
+            assert all(_rel_close(a, b) for a, b in zip(got[key], want[key]))
+        else:
+            assert got[key] == want[key], key
+    if "records" in want:
+        assert sum(len(r) for r in want["records"].values()) > 10
+    if name == "hierarchical":
+        assert got["shards"] == [1, 1, 1, 1] and got["built"] == []
+    if name == "backlog":
+        assert got["after2"] == [300.0, 0.0] and got["after3"] == [0.0, 0.0]
+    if name == "health":
+        assert got["healthy"] == [False, True] and got["first"] == 1
+
+
+FLEET_REF_SCRIPT = r"""
+import json, sys
+import numpy as np
+import jax
+import repro.core as C
+from repro.core.fleet import FleetSpec, RegionSpec, build_fleet, run_fleet
+from repro.data.workload import FunctionCallWorkload, build_catalog
+from repro.serving import engine as E
+
+spec = json.loads(open(sys.argv[1]).read())
+out_dir = sys.argv[2]
+# copy host arrays at the hand-over to jitted calls and wait for each
+# jitted call's inputs and outputs (tests/test_torch_spec_chunk.py says why)
+class _CopyingJnp:
+    def __getattr__(self, name):
+        return getattr(E.jax.numpy, name)
+    @staticmethod
+    def asarray(x, *args, **kwargs):
+        return E.jax.numpy.array(x, *args, **kwargs)
+E.jnp = _CopyingJnp()
+orig_shared = E.ServingEngine._shared_exec
+def _shared_exec(self, kind, build, *extra):
+    fn = orig_shared(self, kind, build, *extra)
+    def synced(*args):
+        jax.block_until_ready(args)
+        return jax.block_until_ready(fn(*args))
+    return synced
+E.ServingEngine._shared_exec = _shared_exec
+
+cat = build_catalog(240, seed=0)
+sel = C.ToolSelector(cat)
+arrays, meta = {}, {}
+for k, v in sel.encoder_params.items():
+    stack = [(k, v)]
+    while stack:
+        name, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((name + "/" + kk, vv) for kk, vv in node.items())
+            continue
+        a = np.asarray(node)
+        meta[name] = a.dtype.name
+        arrays[name] = a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+np.savez(out_dir + "/encoder.npz", **arrays)
+fleet = build_fleet(FleetSpec(regions=tuple(
+    RegionSpec(n, w, s, tuple((p, c) for p, c in pods))
+    for n, w, s, pods in spec["regions"])), catalog=cat, selector=sel, seed=0)
+recs = run_fleet(fleet, FunctionCallWorkload(cat, seed=3),
+                 n_steps=spec["steps"], queries_per_hour=spec["qph"], seed=0,
+                 backend="engine")
+pods = []
+for p in fleet.pods:
+    built = p.client is not None
+    eng = p.runtime.executor.engine if built else None
+    pods.append({
+        "records": [r.__dict__ for r in recs[p.pod_id]],
+        "built": built,
+        "swap_count": p.runtime.executor.swap_count if built else 0,
+        "log": [[s["kind"], list(s["rids"]), s["tokens"], s["variant"],
+                 s["prompt_tokens"], s["cached_tokens"], s["dt"]]
+                for s in eng.step_log] if built else []})
+json.dump({"meta": meta, "pods": pods,
+           "routed": [[r.name, r.routed] for r in fleet.regions]},
+          open(out_dir + "/results.json", "w"))
+"""
+# the chip's fleet phase at reduced width: a clean region with an edge pod,
+# a dirty one with a pod
+FLEET_REGIONS = (("clean", "week1", 0.5, (("edge", 1),)),
+                 ("dirty", "week1", 1.5, (("pod", 1),)))
+FLEET_STEPS, FLEET_QPH = 6, 12.0
+
+
+@pytest.fixture(scope="module")
+def fleet_reference(tmp_path_factory):
+    out = tmp_path_factory.mktemp("ref_fleet")
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps({"regions": FLEET_REGIONS,
+                                     "steps": FLEET_STEPS,
+                                     "qph": FLEET_QPH}))
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(REPO, "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    proc = subprocess.run([sys.executable, "-c", FLEET_REF_SCRIPT,
+                           str(spec_path), str(out)], env=env, cwd=REPO,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, f"stdout:\n{proc.stdout}\nstderr:\n{proc.stderr}"
+    data = json.loads((out / "results.json").read_text())
+    arrays = np.load(out / "encoder.npz")
+    enc = {}
+    for name, dtype in data["meta"].items():
+        *head, last = name.split("/")
+        node = enc
+        for h in head:
+            node = node.setdefault(h, {})
+        node[last] = (arrays[name], dtype) if dtype == "bfloat16" \
+            else arrays[name]
+    return data, params_from_numpy(enc, "cpu")
+
+
+def test_run_fleet_engine_matches_reference(fleet_reference):
+    """The engine-backed fleet at reduced width (the chip's fleet phase:
+    two regions of one pod each, engines built lazily on the first routed
+    query, on one fleet clock) against the reference's fleet run in a
+    subprocess: the same pods built, the same region split, and per pod
+    the same records (floats within ENGINE_REL_TOL), swaps and step log."""
+    data, encoder = fleet_reference
+    sel = PC.ToolSelector(PW.build_catalog(240, seed=0),
+                          encoder_params=encoder, device="cpu")
+    spec = PF.FleetSpec(regions=tuple(PF.RegionSpec(*r)
+                                      for r in FLEET_REGIONS))
+    fleet = PF.build_fleet(spec, catalog=sel.catalog, selector=sel, seed=0,
+                           device="cpu")
+    assert fleet.built_pods() == []
+    recs = PF.run_fleet(fleet, PW.FunctionCallWorkload(sel.catalog, seed=3),
+                        n_steps=FLEET_STEPS, queries_per_hour=FLEET_QPH,
+                        seed=0, backend="engine")
+    assert [[r.name, r.routed] for r in fleet.regions] == data["routed"]
+    served = 0
+    for pod, want in zip(fleet.pods, data["pods"]):
+        built = pod.client is not None
+        assert built == want["built"] == bool(want["records"]), pod.pod_id
+        got = [r.__dict__ for r in recs[pod.pod_id]]
+        _close_records({0: [tuple(r.values()) for r in got]},
+                       {0: [tuple(r.values()) for r in want["records"]]})
+        served += len(got)
+        if not built:
+            assert isinstance(pod.runtime.executor, PC.SimExecutor)
+            continue
+        ex = pod.runtime.executor
+        assert isinstance(ex, PC.EngineExecutor)
+        assert ex.engine.device.type == "cpu" and ex.clock is pod.fleet_clock
+        assert ex.swap_count == want["swap_count"]
+        log = [[s["kind"], list(s["rids"]), s["tokens"], s["variant"],
+                s["prompt_tokens"], s["cached_tokens"]]
+               for s in ex.engine.step_log]
+        assert log == [s[:6] for s in want["log"]]
+        assert all(_rel_close(s["dt"], w[6])
+                   for s, w in zip(ex.engine.step_log, want["log"]))
+    assert served > 5
