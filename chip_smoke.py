@@ -155,22 +155,48 @@ Phases, each raising on its first fault (the script then exits non-zero):
                in-process with `--device cpu` (the reduced config; those
                lines read no tokens). The in-process run is the main path:
                q8, q4, paged and flash attention and sim_scores must launch.
+ 16. serve_zamba2 — full-width zamba2-7b (81 block applications: 13 groups
+               of 5 mamba blocks and a shared attention+MLP block over 2
+               weight sets, then 3 mamba blocks; d 3584, 32 heads of 112),
+               drawn on the card from seed 0 (DRAW_PEAK_SLACK), on the dense
+               engine (`kv_layout="auto"`): phase 5's requests with a Q8 ->
+               Q4 swap on bf16 KV, then on int8 KV, each a main path of its
+               own (ssd_bshp once a mamba block and flash attention once a
+               shared block a prefill step, q8 and q4 launched, the paged
+               kernel not, no fallback, the invariants clean); one 4 x 512
+               admission's logits through the kernels against the plain
+               ssd scan and plain attention within HYBRID_LOGIT_REL of the
+               row's max |logit|; Q8 / Q4 dense decode steps at batch 4 and
+               a 4 x 512 prefill (CUDA events, profiler).
+ 17. serve_phi35_moe — full-width phi3.5-moe-42b-a6.6b (32 layers, 16
+               experts of d_ff 6400, top 2, 32 / 8 heads; 61 GiB of Q8 + Q4
+               trees drawn a (layer, expert) slice at a time, the draw's
+               peak at most DRAW_PEAK_SLACK above them): phase 10's paths
+               (the two paged paths, the dense bf16 path teacher-forced onto
+               the paged engine within ENGINE_LOGIT_REL, on prompts that
+               share no block, so both engines run the same MoE calls), a
+               paged path with `prefill_chunk=CHUNK` drafting with Q4 at k 2
+               (chunk and spec steps, drafted and accepted tokens; its
+               tokens not compared: capacity drops depend on the window),
+               and Q8 / Q4 decode steps at batch 4.
 Every phase starts with at most PHASE_START_MAX of device memory allocated
 (after a garbage collection), or the run fails naming the phase before it;
 each phase's start and peak are printed.
 The kernel check of phase 3 holds q8_matmul and q4_matmul to QM_TOL at
-carboncall-qwen2-7b's five (K, N), hermes2-pro-8b / llama3.1-8b's six and
-qwen2.5-32b's five for M in QM_ROWS (both regimes and their
-edge) and at mamba2-370m's four (K, N) for M in QM_MAMBA_ROWS, each launched
-twice with bit-identical results; it includes sim_scores, at the runtime's index
-(N = 256: 240 tools and 16 zero rows, d = 256, m = 1, 2, 3 and 8 sentences, and
-m = 33 and 64, one launch each), at a ToolBench-sized catalog (N = 16640)
-and at N = 65536 up to m = 32, held to 1e-5 with the same top 16 and top
-32, and the fused retrieval (raw queries to the top k in one launch) at
-k = 16, 32 and, at N = 256, k = N, with indices equal to the plain
-version's, ties included, and bit-identical repeats; and the SSD chunk
-scan at the shapes of mamba2-370m (H 32, P 64, N 128) and zamba2-7b (H 112, P 64, N 64),
-held to 0.05 on y and the final state with bit-identical repeats; decode attention at PAGED_CASES,
+carboncall-qwen2-7b's five (K, N), hermes2-pro-8b / llama3.1-8b's six,
+qwen2.5-32b's five and phi3.5-moe's head for M in QM_ROWS (both regimes and
+their edge) and at mamba2-370m's four and zamba2-7b's seven (K, N) for M in
+QM_MAMBA_ROWS, each launched twice with bit-identical results; it includes
+sim_scores, at the runtime's index (N = 256: 240 tools and 16 zero rows,
+d = 256, m = 1, 2, 3 and 8 sentences, and m = 33 and 64, one launch each),
+at a ToolBench-sized catalog (N = 16640) and at N = 65536 up to m = 32,
+held to 1e-5 with the same top 16 and top 32, and the fused retrieval (raw
+queries to the top k in one launch) at k = 16, 32 and, at N = 256, k = N,
+with indices equal to the plain version's, ties included, and bit-identical
+repeats; and the SSD chunk scan at the shapes of mamba2-370m (H 32, P 64,
+N 128) and zamba2-7b (H 112, P 64, N 64; its serve admissions too), held
+to 0.05 on y and the final state with bit-identical repeats; decode
+attention at PAGED_CASES,
 bf16 and int8 pools, within PAGED_BF16_TOL / PAGED_INT8_TOL and, row by row,
 PAGED_ROW_TOL at the planned split, one split and nb splits, with
 bit-identical repeats, timed by device time against its byte bound and the
@@ -183,7 +209,7 @@ then the kernel at FLASH_CASES within FLASH_TOL and FLASH_ROW_TOL with
 bit-identical repeats,
 timed by device time against the faster of two SDPA calls.
 The line before the last is the `kernels` JSON record (launches summed over
-the main paths of phases 4 to 15); the last line is
+the main paths of phases 4 to 17); the last line is
 {"ok": true, "device": {...}}. Without a card, or run from a directory that
 holds no `src/repro_torch`, it prints no result and exits 2.
 """
@@ -215,6 +241,13 @@ QM_QWEN25_SHAPES = [(5120, 5120), (5120, 1024), (5120, 27648), (27648, 5120),
 QM_MAMBA_SHAPES = [(1024, 2048), (1024, 128), (1024, 32),
                    (2048, 1024)]  # mamba2-370m: wz/wx, wb/wc, wdt, out_proj
 QM_MAMBA_ROWS = (4, 512, 2048)  # the serve path's decode and two admissions
+# zamba2-7b: wz/wx, wb/wc, wdt, out_proj, the shared block's wg/wu and down,
+# lm_head (its attention's (3584, 3584) is qwen2's wq), at its serve path's
+# decode and two admissions; phi3.5-moe-42b-a6.6b's head (its attention's
+# shapes are llama3.1-8b's; its batched experts never reach the kernel)
+QM_ZAMBA_SHAPES = [(3584, 7168), (3584, 64), (3584, 112), (7168, 3584),
+                   (3584, 14336), (14336, 3584), (3584, 32000)]
+QM_PHI_SHAPES = [(4096, 32064)]
 QM_TOL = 0.02                   # max |err| / max |plain|: one bf16 ulp is 0.4%
 # max |err| of the attention outputs (bf16). Paged rows average 129-256
 # positions, so |out| is ~0.1 and one bf16 ulp there is ~5e-4; int8 pools
@@ -280,7 +313,11 @@ FLASH_CASES = [("serve", 4, S, S, 28, 4, 128, True, 0, 0.0)
     # qwen2.5-32b: 40 query heads over 8 KV heads (G 5)
     ("qwen2.5", 4, S, S, 40, 8, 128, True, 0, 0.0) for S in (64, 256)] + [
     ("long", 1, 2048, 2048, 28, 4, 128, True, 0, 0.0),
-    ("long", 1, 4096, 4096, 28, 4, 128, True, 0, 0.0)]
+    ("long", 1, 4096, 4096, 28, 4, 128, True, 0, 0.0)] + [
+    # zamba2-7b's shared block: 32 heads of 112 over 32 KV heads (MHA, its
+    # head padded to 128 in the kernel); last, so the earlier cases draw
+    # the inputs they drew before
+    ("zamba2", 4, S, S, 32, 32, 112, True, 0, 0.0) for S in (64, 256)]
 FLASH_PRODUCT_HEADS = (16, 64, 112, 128, 256)   # every head_dim in configs/
 PRODUCT_TOL = 1e-5              # max |err| / max |f32 product|
 SIM_TOL = 1e-5                  # retrieval scores, f32 (ROADMAP tolerance)
@@ -292,17 +329,28 @@ SIM_KS = (16, 32)               # top k of the fused retrieval; and N at 256
 SSD_TOL = 0.05                  # y and final state (tests/test_kernels.py)
 # (label, B, S, H, P, G, N, chunk): mamba2-370m at B 1 S 2048, its serve
 # admissions (4 x 128, 4 x 512), S 4096 (32 chunks in the state pass) and a
-# chunk of 40 rows; zamba2-7b's heads
+# chunk of 40 rows; zamba2-7b's heads at B 1 S 1024 and at its serve
+# admissions
 SSD_SHAPES = [("mamba2-370m", 1, 2048, 32, 64, 1, 128, 128),
               ("mamba2-370m", 4, 128, 32, 64, 1, 128, 128),
               ("mamba2-370m", 2, 512, 32, 64, 1, 128, 128),
               ("mamba2-370m", 4, 512, 32, 64, 1, 128, 128),
               ("mamba2-370m", 1, 4096, 32, 64, 1, 128, 128),
               ("mamba2-370m", 2, 120, 32, 64, 1, 128, 40),
-              ("zamba2-7b", 1, 1024, 112, 64, 1, 64, 128)]
+              ("zamba2-7b", 1, 1024, 112, 64, 1, 64, 128),
+              ("zamba2-7b", 4, 128, 112, 64, 1, 64, 128),
+              ("zamba2-7b", 4, 512, 112, 64, 1, 64, 128)]
 # the ssd kernel's f32 operands enter its bf16 products as hi + lo parts
 SSD_SPLIT_PARTS = 2
 MAMBA_LOGIT_REL = 0.02          # of max |logit| (tests/test_torch_mamba2.py)
+# serve_zamba2: the hybrid's kernel prefill against the plain ssd scan and
+# plain attention, of the row's max |logit| (at least 1). zamba2-7b's 81
+# random layers carry a rounding difference further than mamba2's 48, and
+# its untied head's rows peak at a few units where mamba2's tied head
+# reaches ~50: the kernels read 0.042 at seed 0, against the plain scan's
+# own drift between two chunkings read by tools/ssd_logit_drift.py --arch
+# zamba2-7b (PERF.md §6, PR 29)
+HYBRID_LOGIT_REL = 0.06
 # runtime phase: a clean grid, then a dirty one, 10-minute steps
 RAMP_CLEAN, RAMP_DIRTY, RAMP_CI = 4, 8, (100.0, 900.0)
 # runtime_mamba2 and runtime_paper_models run a shorter ramp (15 queries,
@@ -331,6 +379,13 @@ MARGIN_BOUND = 0.16
 # at full width (PERF.md §6, PR 23), where bf16 rounding differs at every
 # one of 28 layers; 0.008 / 0.013 (int8 KV) at the CPU tests' width
 ENGINE_LOGIT_REL = 0.03
+# an MoE token whose neighbours among its k + 1 largest router logits lie
+# closer than this may route otherwise in two runs that round the hidden
+# state apart (RouteTape): phi's router logits spread ~0.064 a token (the
+# init's std 1e-3 over d 4096), and the dense run's moved up to 3.08e-3
+# from the paged run's over 32 layers (PERF.md §6, PR 29); a gap of 2x
+# the drift cannot flip, and the replay fails above half the margin
+ROUTE_MARGIN = 0.01
 REPLACES = {
     "q8_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:56",
     "q4_matmul": "src/repro/kernels/quant_matmul/quant_matmul.py:108",
@@ -362,6 +417,9 @@ PAPER_ARCHS = ("hermes2-pro-8b", "llama3.1-8b")
 # serve_qwen25_32b's model; every tree drawn on the card a layer slice at a
 # time may peak at most DRAW_PEAK_SLACK above the finished trees
 QWEN25_ARCH = "qwen2.5-32b"
+# serve_zamba2 / serve_phi35_moe: the hybrid and MoE families at full width
+ZAMBA_ARCH = "zamba2-7b"
+PHI_ARCH = "phi3.5-moe-42b-a6.6b"
 DRAW_PEAK_SLACK = 2 * 2**30
 # every phase must start with at most this much device memory allocated
 # (the phase before it freed its trees; small per-device scratch stays)
@@ -587,7 +645,10 @@ def check_quant_matmul(records, timed_m: int = 4, prefill_m: int = 512):
                                     ("qwen2.5-32b", QM_QWEN25_SHAPES,
                                      QM_ROWS),
                                     ("mamba2", QM_MAMBA_SHAPES,
-                                     QM_MAMBA_ROWS)):
+                                     QM_MAMBA_ROWS),
+                                    ("zamba2-7b", QM_ZAMBA_SHAPES,
+                                     QM_MAMBA_ROWS),
+                                    ("phi3.5-moe", QM_PHI_SHAPES, QM_ROWS)):
             for K, N in shapes:
                 w = torch.randn((K, N), generator=g, device="cuda") / math.sqrt(K)
                 t = quantize(w.to(torch.bfloat16), fmt)
@@ -1398,6 +1459,15 @@ def _requests(seed: int, vocab: int):
     return prompts
 
 
+def _cold_requests(seed: int, vocab: int):
+    """8 prompts of 64 random tokens, one bucket's length: no padding and
+    no common block, so a paged engine admits every one of them cold."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return [[int(t) for t in rng.integers(2, vocab, size=64)]
+            for _ in range(8)]
+
+
 def serve_once(cfg, variants, kv_cache_dtype, prompts, max_new, swap_at,
                label, expect, device="cuda"):
     """One engine, one main path: submit every prompt, step until drained
@@ -1665,41 +1735,28 @@ def _mamba_prompts(seed: int, vocab: int):
             for n in (32, 45, 77, 60, 300, 150, 200, 33)]
 
 
-def phase_serve_mamba2(device="cuda", model_cfg=None):
-    """Full-width mamba2-370m (unless `model_cfg` says otherwise) on the
-    dense engine, Q8 then Q4 after a hot swap. The launch counters are set to
-    0 just before the run and read just after. Returns this path's counts."""
+def serve_dense_swap(cfg, variants, device, label, kv_cache_dtype="bf16",
+                     expect=("ssd_bshp", "q8_matmul", "q4_matmul")):
+    """An attention-free or hybrid model on the dense engine
+    (`kv_layout="auto"`), one main path: `_mamba_prompts` with 8 new tokens
+    each, Q8 with a hot swap to Q4 after 8 steps. The launch counters are
+    set to 0 just before the run and read just after; every kernel in
+    `expect` must launch, ssd_bshp once a mamba block a prefill step and
+    flash_attention once an attention block a prefill step, and the paged
+    kernel never. Returns this path's counts."""
     import torch
     from repro_torch import kernels
-    from repro_torch.common.registry import get_arch
     from repro_torch.config import RuntimeConfig
-    from repro_torch.kernels.ssd import ops as ssd_ops
-    from repro_torch.kernels.ssd.ref import ssd_chunked
-    from repro_torch.models import get_model
-    from repro_torch.models.transformer import unembed
-    from repro_torch.quant.qtensor import init_quantized
     from repro_torch.serving import (EngineClient, ServingEngine,
                                      SessionRequest, check_invariants)
     from repro_torch.serving.scheduler import DONE
-    from repro_torch.sharding.param import init_params
     sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
-    cfg = model_cfg if model_cfg is not None else get_arch("mamba2-370m")
-    model = get_model(cfg)
-    spec = model.param_spec()
-    # the weights are drawn on a CPU generator, so a seed gives the same
-    # model on the CPU and on the card
-    sync()
-    t0 = time.perf_counter()
-    variants = init_quantized(spec, ("q8", "q4"), torch.Generator(), device)
-    sync()
-    log(f"serve_mamba2: {cfg.name} ({cfg.num_layers} layers, "
-        f"d={cfg.d_model}) q8+q4 weights drawn on the CPU and quantized on "
-        f"{device} in {time.perf_counter() - t0:.2f} s (host clock)")
-    rcfg = RuntimeConfig()
-    eng = ServingEngine(cfg, variants["q8"], rcfg, max_batch=4, max_seq=512,
-                        kv_layout="auto", device=device, seed=0)
+    eng = ServingEngine(cfg, variants["q8"],
+                        RuntimeConfig(kv_cache_dtype=kv_cache_dtype),
+                        max_batch=4, max_seq=512, kv_layout="auto",
+                        device=device, seed=0)
     if eng.kv_layout != "dense":
-        fail(f"serve_mamba2: kv_layout resolved to {eng.kv_layout}")
+        fail(f"{label}: kv_layout resolved to {eng.kv_layout}")
     eng.variant_name = "q8"
     client = EngineClient(eng)
     nonfinite = []
@@ -1729,27 +1786,27 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
         host_s[eng.step_log[-1]["kind"]] += time.perf_counter() - t0
         steps += 1
         if steps > 1000:
-            fail("serve_mamba2: engine did not drain")
+            fail(f"{label}: engine did not drain")
     launches = kernels.launch_counts()
     reqs = [h.request for h in handles]
     bad = [r.rid for r in reqs if r.status != DONE
            or len(r.output) != max_new]
     if bad:
-        fail(f"serve_mamba2: requests not DONE with {max_new} tokens: {bad}")
+        fail(f"{label}: requests not DONE with {max_new} tokens: {bad}")
     if nonfinite:
-        fail(f"serve_mamba2: non-finite logits for rids {nonfinite}")
+        fail(f"{label}: non-finite logits for rids {nonfinite}")
     if device == "cuda" and eng.kernel_fallbacks != 0:
-        fail(f"serve_mamba2: kernel_fallbacks = {eng.kernel_fallbacks}")
+        fail(f"{label}: kernel_fallbacks = {eng.kernel_fallbacks}")
     errs = check_invariants(eng, reqs)
     if errs:
-        fail(f"serve_mamba2: invariant violations: {errs}")
+        fail(f"{label}: invariant violations: {errs}")
     if any(not (0 <= t < cfg.vocab_size) for r in reqs for t in r.output):
-        fail("serve_mamba2: an out-of-vocab token")
+        fail(f"{label}: an out-of-vocab token")
     kinds = [(e["kind"], e["variant"], e["prompt_tokens"])
              for e in eng.step_log]
     prefills = sum(k == "prefill" for k, _, _ in kinds)
     variants_seen = {v for _, v, _ in kinds}
-    log(f"  serve_mamba2: {len(reqs)} DONE, steps={steps} ({prefills} "
+    log(f"  {label}: {len(reqs)} DONE, steps={steps} ({prefills} "
         f"prefill, {len(kinds) - prefills} decode), variants "
         f"{sorted(variants_seen)}, swaps={eng.swap_count}, "
         f"kernel_fallbacks={eng.kernel_fallbacks}, logits finite, "
@@ -1757,16 +1814,90 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
         f"prefill steps {host_s['prefill']:.3f} s, decode steps "
         f"{host_s['decode']:.3f} s")
     if variants_seen != {"q8", "q4"} or eng.swap_count != 1:
-        fail(f"serve_mamba2: no live Q8 -> Q4 swap ({variants_seen})")
+        fail(f"{label}: no live Q8 -> Q4 swap ({variants_seen})")
     if device == "cuda":
-        idle = [k for k in ("ssd_bshp", "q8_matmul", "q4_matmul")
-                if launches[k] <= 0]
+        idle = [k for k in expect if launches[k] <= 0]
         if idle:
-            fail(f"serve_mamba2: kernels never launched on this path: {idle}")
-        if launches["ssd_bshp"] != cfg.num_layers * prefills:
-            fail(f"serve_mamba2: ssd_bshp launched {launches['ssd_bshp']} "
-                 f"times for {prefills} prefills of {cfg.num_layers} layers")
-    del eng
+            fail(f"{label}: kernels never launched on this path: {idle}")
+        n_attn = cfg.num_attn_layers()
+        for k, per in (("ssd_bshp", cfg.num_layers - n_attn),
+                       ("flash_attention", n_attn),
+                       ("paged_attention", 0)):
+            if launches[k] != per * prefills:
+                fail(f"{label}: {k} launched {launches[k]} times for "
+                     f"{prefills} prefills of {per} blocks")
+    return launches
+
+
+def prefill_vs_plain(model, params, toks, rcfg, label, rel, by_row=True):
+    """One prefill of `toks` through the kernels against the same prefill
+    with the ssd scan and prefill attention swapped for their plain
+    versions, on the same device: every logit within `rel` of the row's
+    max |logit| (of the batch's without `by_row`, as the mamba2 check has
+    read it since PR 16), at least 1, and the greedy token equal wherever
+    the plain run's top-2 margin is at least twice that. Returns the worst
+    |difference| over that scale."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.ssd import ops as ssd_ops
+    from repro_torch.kernels.ssd.ref import ssd_chunked
+    logits, _, _ = model.prefill(params, {"tokens": toks}, rcfg)
+    launch_ssd, launch_fa = ssd_ops.ssd, fa_ops.flash_attention
+    ssd_ops.ssd = lambda x, dt, A, Bm, Cm, *, chunk: ssd_chunked(  # noqa: E731
+        x, dt, A, Bm, Cm, chunk)
+    fa_ops.flash_attention = flash_attention_ref
+    try:
+        plain, _, _ = model.prefill(params, {"tokens": toks}, rcfg)
+    finally:
+        ssd_ops.ssd, fa_ops.flash_attention = launch_ssd, launch_fa
+    scale = plain.abs().amax(dim=-1, keepdim=True).clamp_min(1.0)
+    if not by_row:
+        scale = scale.max().expand_as(scale)
+    worst = ((logits - plain).abs().amax(dim=-1, keepdim=True)
+             / scale).max().item()
+    top2 = plain.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) >= 2 * rel * scale[:, 0]
+    same = bool((logits.argmax(-1) == plain.argmax(-1))[sure].all().item())
+    ok = bool(torch.isfinite(logits).all().item()) and worst <= rel and same
+    B, S = toks.shape
+    log(f"  {label} prefill {B} x {S}, kernels vs plain ssd scan and "
+        f"attention: max |logit diff| {worst:.4f} of the "
+        f"{'row' if by_row else 'batch'}'s max |logit| "
+        f"(tol {rel}), greedy tokens equal on {int(sure.sum())} of {B} "
+        f"rows {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        fail(f"{label}: kernel prefill differs from the plain one ({worst})")
+    return worst
+
+
+def phase_serve_mamba2(device="cuda", model_cfg=None):
+    """Full-width mamba2-370m (unless `model_cfg` says otherwise) on the
+    dense engine, Q8 then Q4 after a hot swap (`serve_dense_swap`, a main
+    path); then decode and prefill times, the tied head's, and the kernel
+    prefill against the plain scan. Returns the path's counts."""
+    import torch
+    from repro_torch.common.registry import get_arch
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.models import get_model
+    from repro_torch.models.transformer import unembed
+    from repro_torch.quant.qtensor import init_quantized
+    from repro_torch.sharding.param import init_params
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    cfg = model_cfg if model_cfg is not None else get_arch("mamba2-370m")
+    model = get_model(cfg)
+    spec = model.param_spec()
+    # the weights are drawn on a CPU generator, so a seed gives the same
+    # model on the CPU and on the card
+    sync()
+    t0 = time.perf_counter()
+    variants = init_quantized(spec, ("q8", "q4"), torch.Generator(), device)
+    sync()
+    log(f"serve_mamba2: {cfg.name} ({cfg.num_layers} layers, "
+        f"d={cfg.d_model}) q8+q4 weights drawn on the CPU and quantized on "
+        f"{device} in {time.perf_counter() - t0:.2f} s (host clock)")
+    launches = serve_dense_swap(cfg, variants, device, "serve_mamba2")
+    rcfg = RuntimeConfig()
     # device times of one decode step at batch 4 and one S = 512 prefill of
     # four rows (the engine's shapes), and that prefill through the kernel
     # against the same prefill through the plain scan
@@ -1794,27 +1925,8 @@ def phase_serve_mamba2(device="cuda", model_cfg=None):
                             iters=5, warmup=1)
             log(f"  mamba2 tied head (embed cast to f32 + f32 product) at "
                 f"batch 4: {head_ms:.3f} ms of the decode step (CUDA events)")
-    logits, _, _ = model.prefill(variants["q8"], {"tokens": toks}, rcfg)
-    launch_ssd = ssd_ops.ssd
-    ssd_ops.ssd = lambda x, dt, A, Bm, Cm, *, chunk: ssd_chunked(  # noqa: E731
-        x, dt, A, Bm, Cm, chunk)
-    try:
-        plain, _, _ = model.prefill(variants["q8"], {"tokens": toks}, rcfg)
-    finally:
-        ssd_ops.ssd = launch_ssd
-    scale = max(1.0, plain.abs().max().item())
-    err = (logits - plain).abs().max().item()
-    top2 = plain.topk(2, dim=-1).values
-    sure = (top2[:, 0] - top2[:, 1]) >= 2 * MAMBA_LOGIT_REL * scale
-    same = bool((logits.argmax(-1) == plain.argmax(-1))[sure].all().item())
-    ok = bool(torch.isfinite(logits).all().item()) and \
-        err <= MAMBA_LOGIT_REL * scale and same
-    log(f"  mamba2 q8 prefill 4 x 512, ssd kernel vs plain scan: max |logit "
-        f"diff| {err:.4f} of max |logit| {scale:.2f} (tol "
-        f"{MAMBA_LOGIT_REL} of it), greedy tokens equal on "
-        f"{int(sure.sum())} of 4 rows {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        fail(f"serve_mamba2: kernel prefill differs from the plain one ({err})")
+    prefill_vs_plain(model, variants["q8"], toks, rcfg, "mamba2 q8",
+                     MAMBA_LOGIT_REL, by_row=False)
     del variants
     free_device(device)
     return launches
@@ -2436,6 +2548,71 @@ def dense_decode_step_ms(cfg, params, kv_cache_dtype, label, max_seq):
     return ms
 
 
+class RouteTape:
+    """The MoE routing of one engine run, call by call, and another run of
+    the same calls made to take it: the MoE's counterpart of teacher-forcing
+    tokens. Two runs round the hidden state apart in bf16 (the paged kernel
+    against plain dense attention), which moves router logits by up to
+    `drift`; a token whose neighbours among its k + 1 largest logits lie
+    closer than ROUTE_MARGIN may then choose other experts and carry a
+    different hidden state into every later layer. `record()` keeps every
+    call's weights, experts and router logits; `replay(check)` hands them
+    to the next run's calls in order, failing if a call routes another
+    number of tokens, and with `check` counts how often that run's own
+    choice is the recorded one where no near-tie allows a flip."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.route, self.calls = moe, moe._route, []
+
+    def record(self):
+        def route(x2d, router_w, cfg):
+            w, i = self.route(x2d, router_w, cfg)
+            self.calls.append((w, i, x2d.float() @ router_w.float()))
+            return w, i
+        self.moe._route = route
+
+    def replay(self, check=False):
+        self.n = self.total = self.sure = self.agree = 0
+        self.drift = 0.0
+
+        def route(x2d, router_w, cfg):
+            if self.n >= len(self.calls):
+                fail("route replay: more MoE calls than the recorded run's")
+            w, i, lg = self.calls[self.n]
+            self.n += 1
+            if i.shape[0] != x2d.shape[0]:
+                fail(f"route replay: call {self.n} routes {x2d.shape[0]} "
+                     f"tokens, the recorded one {i.shape[0]}")
+            if check:
+                k = cfg.moe.experts_per_token
+                _, own = self.route(x2d, router_w, cfg)
+                mine = x2d.float() @ router_w.float()
+                self.drift = max(self.drift, (mine - lg).abs().max().item())
+                top = lg.topk(k + 1, dim=-1).values
+                sure = (top[:, :-1] - top[:, 1:]).min(-1).values \
+                    >= ROUTE_MARGIN
+                self.total += len(sure)
+                self.sure += int(sure.sum().item())
+                self.agree += int(((own == i).all(-1) & sure).sum().item())
+            return w, i
+        self.moe._route = route
+
+    def stop(self):
+        self.moe._route = self.route
+
+    def checked(self, label):
+        """After a checked replay: every recorded call taken, and the run's
+        own choice the recorded one for every token clear of a near-tie."""
+        log(f"  {label}: MoE routing replayed over {self.n} calls, {self.total}"
+            f" tokens; {self.sure} clear of a near-tie (ROUTE_MARGIN "
+            f"{ROUTE_MARGIN}), its own choice the recorded one on "
+            f"{self.agree}; router logit drift {self.drift:.2e}")
+        if self.n != len(self.calls) or self.agree != self.sure \
+                or self.drift >= ROUTE_MARGIN / 2:
+            fail(f"{label}: MoE routing differs where no near-tie allows it")
+
+
 def dense_vs_paged(cfg, variants, kv, device):
     """Phase 4's requests on the dense layout, a main path of its own
     (counters set to 0 just before it, read just after): on bf16 KV with a
@@ -2446,12 +2623,24 @@ def dense_vs_paged(cfg, variants, kv, device):
     from repro_torch import kernels
     swap_at, expect = ((DENSE_SWAP_AT, DENSE_KERNELS) if kv == "bf16" else
                        (None, ("q8_matmul", "flash_attention")))
-    prompts = _requests(0, cfg.vocab_size)
+    # an MoE layer routes all the rows of one call together, under one
+    # capacity: a prefix-cache hit (a shared prompt block, or blocks of
+    # left padding) runs another call (the suffix alone) than the dense
+    # engine's whole prompt and may drop other slots, so the MoE's prompts
+    # share no block and both engines run the same calls
+    prompts = (_cold_requests if cfg.family == "moe" else _requests)(
+        0, cfg.vocab_size)
     label = f"dense {kv}-KV q8{'->q4' if swap_at else ''}"
+    # and both dense runs take the paged run's routing (`RouteTape`)
+    tape = RouteTape() if cfg.family == "moe" else None
+    if tape:
+        tape.record()
     paged, p_reqs, p_clock, p_pre = _serve_spec(
         cfg, variants, kv, None, prompts, device, swap_at=swap_at,
         max_new=8, keep_rows=True)
     _check_engine(f"{label}: paged", paged, p_reqs, 8, device)
+    if tape:
+        tape.replay()
     kernels.reset_launch_counts()
     eng, reqs, clock, pre = _serve_spec(
         cfg, variants, kv, None, prompts, device, swap_at=swap_at,
@@ -2469,9 +2658,14 @@ def dense_vs_paged(cfg, variants, kv, device):
     _margin_rule(f"{label} vs paged (Q8 tokens)", reqs, p_reqs,
                  p_clock.margins, q8)
     ref = (p_clock.rows, {r.rid: r.output for r in p_reqs})
+    if tape:
+        tape.replay(check=True)
     forced = _serve_spec(cfg, variants, kv, None, prompts, device,
                          swap_at=swap_at, layout="dense", max_new=8,
                          ref=ref, ref_q8=q8)[2]
+    if tape:
+        tape.stop()
+        tape.checked(f"{label} vs paged")
     _forced_logits(f"{label} vs paged", forced)
     log(f"  {label}: {len(reqs)} DONE in {len(steps)} steps, "
         f"swaps={eng.swap_count}, step times (CUDA events) dense "
@@ -2555,15 +2749,18 @@ def phase_runtime_mamba2(device="cuda", model_cfg=None):
 # ---------------------------------------------------------------------------
 
 
-def serve_model(cfg, device, label):
+def serve_model(cfg, device, label, extra=None):
     """One full-width model, its trees drawn on `device` from seed 0
     (`draw_variants`) and freed at the end: phase
     4's two paged paths, one dense path on bf16 KV teacher-forced onto the
-    paged engine's tokens, and (on the card) a decode step at batch 4 for
-    Q8 and Q4 on bf16 KV. Returns the paths' counts, one dict a path."""
+    paged engine's tokens, `extra(cfg, variants, device)`'s path where
+    given, and (on the card) a decode step at batch 4 for Q8 and Q4 on
+    bf16 KV. Returns the paths' counts, one dict a path."""
     variants = draw_variants(cfg, device, label)
     per_path = [serve_paged(cfg, variants, device, label),
                 dense_vs_paged(cfg, variants, "bf16", device)]
+    if extra is not None:
+        per_path.append(extra(cfg, variants, device))
     if device == "cuda":
         for fmt in ("q8", "q4"):
             decode_step_ms(cfg, variants[fmt], "bf16",
@@ -2892,6 +3089,165 @@ def phase_serve_launcher(device="cuda"):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# 16. the hybrid family: zamba2-7b on the dense layout
+# ---------------------------------------------------------------------------
+
+
+def phase_serve_zamba2(device="cuda", model_cfg=None):
+    """Full-width zamba2-7b (unless `model_cfg` says otherwise), drawn on
+    the card from seed 0, on the dense engine: `serve_dense_swap` on bf16
+    KV, then on int8 KV, each a main path of its own (ssd_bshp, flash,
+    q8 and q4 launched, the paged kernel not); one 4 x 512 admission's
+    prefill logits against the plain ssd scan and plain attention within
+    HYBRID_LOGIT_REL of the row's max |logit|; then (on the card) a dense
+    decode step at batch 4 for Q8 and Q4. Returns the paths' counts
+    summed."""
+    import torch
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.models import get_model
+    from repro_torch.sharding.param import init_params
+    cfg = model_cfg if model_cfg is not None else get_arch(ZAMBA_ARCH)
+    model = get_model(cfg)
+    variants = draw_variants(cfg, device, "serve_zamba2")
+    expect = ("ssd_bshp", "flash_attention", "q8_matmul", "q4_matmul")
+    per_path = [serve_dense_swap(cfg, variants, device,
+                                 f"serve_zamba2 {kv}-KV q8->q4", kv, expect)
+                for kv in ("bf16", "int8")]
+    launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+    log(f"serve_zamba2: main-path launches, both paths summed: {launches}")
+    rcfg = RuntimeConfig()
+    g = torch.Generator().manual_seed(2)
+    toks = torch.randint(2, cfg.vocab_size, (4, 512), generator=g).to(device)
+    prefill_vs_plain(model, variants["q8"], toks, rcfg, "zamba2 q8",
+                     HYBRID_LOGIT_REL)
+    if device == "cuda":
+        lens = torch.tensor([64, 96, 128, 160], dtype=torch.int32,
+                            device=device)
+        for fmt in ("q8", "q4"):
+            cache = init_params(model.cache_spec(rcfg, 4, 512), None, device)
+            step = lambda: model.decode_step(  # noqa: E731
+                variants[fmt], cache, toks[:, :1], lens, rcfg)
+            ms = time_ms(step, iters=5, warmup=1)
+            log(f"  zamba2 {fmt}: dense decode step {ms:.2f} ms at batch 4 "
+                f"(CUDA events) -> {4e3 / ms:.1f} tokens/s")
+            profile_window(step, f"zamba2 decode {fmt}")
+            del cache
+        pre = lambda: model.prefill(variants["q8"], {"tokens": toks}, rcfg)  # noqa: E731
+        log(f"  zamba2 q8: prefill {time_ms(pre, iters=2, warmup=1):.2f} ms "
+            f"at 4 x 512 tokens (CUDA events)")
+        profile_window(pre, "zamba2 prefill q8 (4 x 512)", n=1)
+    del variants
+    free_device(device)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# 17. the MoE family: phi3.5-moe on both KV layouts
+# ---------------------------------------------------------------------------
+
+
+def spec_chunk_path(cfg, variants, device):
+    """A paged engine with `prefill_chunk=CHUNK` drafting with Q4 at k 2, a
+    main path of its own (counters set to 0 just before, read just after):
+    two 40-token requests decode while a 300- and a 700-token one admit in
+    windows, 16 new tokens each. All DONE, the invariants clean, chunk and
+    spec steps taken, drafted and accepted tokens counted; the four model
+    kernels launched. Its tokens are not held against an unchunked run's:
+    a window is another MoE call than the whole prompt, so capacity drops
+    may differ. Returns the path's counts."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.config import RuntimeConfig
+    from repro_torch.serving import (EngineClient, ServingEngine,
+                                     SessionRequest, SpecDecodeConfig)
+    label = "paged chunk+spec"
+    rng = np.random.default_rng(7)
+    prompts = [[int(t) for t in rng.integers(2, cfg.vocab_size, size=n)]
+               for n in (40, 40, 300, 700)]
+    eng = ServingEngine(cfg, variants["q8"], RuntimeConfig(), max_batch=4,
+                        max_seq=1024, block_size=16,
+                        prompt_buckets=CHUNK_BUCKETS, kv_layout="paged",
+                        prefill_chunk=CHUNK,
+                        spec_decode=SpecDecodeConfig("q4", k=2),
+                        device=device, seed=0)
+    eng.variant_name = "q8"
+    eng.set_draft_params(variants["q4"], "q4")
+    client = EngineClient(eng)
+    clock = _StepClock(eng, device)
+    kernels.reset_launch_counts()
+    hs = [client.submit(SessionRequest(prompt=p, max_new_tokens=16,
+                                       eos_id=-1)) for p in prompts]
+    while eng.has_work():
+        clock.step()
+        if len(clock.ms) > 2000:
+            fail(f"{label}: engine did not drain")
+    launches = _path_launches(label, kernels.launch_counts(), MODEL_KERNELS,
+                              device)
+    st = _check_engine(label, eng, [h.request for h in hs], 16, device)
+    kinds = {k: clock.kinds.count(k) for k in sorted(set(clock.kinds))}
+    log(f"  {label}: prefill_chunk {eng.prefill_chunk}, steps {kinds}, "
+        f"chunk_steps={st.chunk_steps}, spec_steps={st.spec_steps}, "
+        f"drafted {st.draft_tokens}, accepted {st.accepted_tokens}, "
+        f"step times (CUDA events) {sum(clock.ms):.1f} ms")
+    if st.chunk_steps <= 0 or st.spec_steps <= 0 or st.draft_tokens <= 0:
+        fail(f"{label}: no chunk window or no drafting ({kinds})")
+    return launches
+
+
+def expert_dequant(cfg, variants, device):
+    """Layer 0's stacked experts dequantized in one buffer (`quant.
+    dequantize_experts`, what every MoE call runs) against each expert
+    dequantized alone, bit for bit, for both trees; on the card, the time
+    of one layer's three matrices (CUDA events) beside its byte bound."""
+    import torch
+    from repro_torch.quant.qtensor import dequantize, dequantize_experts
+    for fmt in ("q8", "q4"):
+        moe = variants[fmt]["layers"]["moe"]
+        t = moe["wg"][0]
+        got = dequantize_experts(t)
+        want = torch.stack([dequantize(t[e]) for e in range(t.shape[0])])
+        if not torch.equal(got, want):
+            fail(f"expert dequant {fmt}: differs from dequantize")
+        del got, want
+        line = f"  expert dequant {fmt}: layer 0's {tuple(t.shape)} equal " \
+            "to dequantize expert by expert"
+        if device == "cuda":
+            mats = [moe[k][0] for k in ("wg", "wu", "wo")]
+            ms = time_ms(lambda: [dequantize_experts(m) for m in mats],
+                         iters=3, warmup=1)
+            nbytes = sum(m.nbytes() + 2 * math.prod(m.shape) for m in mats)
+            b, _ = bound_ms(nbytes, 0.0, BF16_FLOPS)
+            line += (f"; one layer's three matrices {ms:.3f} ms (CUDA "
+                     f"events), bound {b:.3f} ms (bytes), x{cfg.num_layers} "
+                     f"layers {ms * cfg.num_layers:.1f} ms a forward")
+        log(line)
+
+
+def moe_extra_path(cfg, variants, device):
+    expert_dequant(cfg, variants, device)
+    return spec_chunk_path(cfg, variants, device)
+
+
+def phase_serve_phi35_moe(device="cuda", model_cfg=None):
+    """`serve_model` over full-width phi3.5-moe-42b-a6.6b (unless
+    `model_cfg` says otherwise), its trees drawn a (layer, expert) slice
+    at a time (the draw's peak at most DRAW_PEAK_SLACK above them), with
+    `expert_dequant`'s check and `spec_chunk_path` as its extra path.
+    Returns the paths' counts summed."""
+    from repro_torch import kernels
+    from repro_torch.common.registry import get_arch
+    cfg = model_cfg if model_cfg is not None else get_arch(PHI_ARCH)
+    per_path = serve_model(cfg, device, f"serve_phi35_moe {cfg.name}",
+                           extra=moe_extra_path)
+    launches = {k: sum(p[k] for p in per_path) for k in kernels.KERNELS}
+    log(f"serve_phi35_moe: main-path launches, {len(per_path)} paths "
+        f"summed: {launches}")
+    return launches
+
+
 def main():
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -2941,6 +3297,9 @@ def main():
         "fleet": memory.run("fleet", phase_fleet),
         "workers": memory.run("workers", phase_workers),
         "serve_launcher": memory.run("serve_launcher", phase_serve_launcher),
+        "serve_zamba2": memory.run("serve_zamba2", phase_serve_zamba2),
+        "serve_phi35_moe": memory.run("serve_phi35_moe",
+                                      phase_serve_phi35_moe),
     }
     memory.run("the end", lambda: None)
     launches = {k: sum(p[k] for p in per_phase.values())

@@ -67,7 +67,7 @@ def _model_config(d: Dict[str, Any]):
     """A port `ModelConfig` from its `dataclasses.asdict` form. Fields the
     port's config does not have (other families' options, ROADMAP Queue 1
     item 7) are refused by name."""
-    from repro_torch.config import ModelConfig, SSMConfig
+    from repro_torch.config import ModelConfig, MoEConfig, SSMConfig
 
     known = {f.name for f in dataclasses.fields(ModelConfig)}
     extra = sorted(set(d) - known)
@@ -75,8 +75,9 @@ def _model_config(d: Dict[str, Any]):
         raise ProtocolError(f"model_cfg fields the port does not serve: "
                             f"{extra} (ROADMAP Queue 1 item 7)")
     d = dict(d)
-    if isinstance(d.get("ssm"), dict):
-        d["ssm"] = SSMConfig(**d["ssm"])
+    for key, record in (("ssm", SSMConfig), ("moe", MoEConfig)):
+        if isinstance(d.get(key), dict):
+            d[key] = record(**d[key])
     return ModelConfig(**d)
 
 

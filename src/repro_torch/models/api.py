@@ -1,18 +1,21 @@
 """Uniform Model API over the family modules the port serves so far: the
-pattern-1 transformer (dense and paged KV contracts) and the attention-free
-mamba2 LM (dense cache contract)."""
+pattern-1 transformer and its MoE variant (dense and paged KV contracts),
+the attention-free mamba2 LM and the Zamba2 hybrid (dense cache
+contract)."""
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.config import ModelConfig, RuntimeConfig
-from repro_torch.models import mamba2, transformer
+from repro_torch.models import hybrid, mamba2, transformer
 
 
 def _module_for(cfg: ModelConfig):
     if cfg.family == "mamba2":
         return mamba2
-    if cfg.family != "transformer":
+    if cfg.family == "hybrid":
+        return hybrid
+    if cfg.family not in ("transformer", "moe"):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet; the other "
             "families are ROADMAP Queue 1 item 7")
@@ -33,11 +36,12 @@ class Model:
 
     def prefill(self, params, batch, rcfg: RuntimeConfig):
         """-> (last-position logits (B,V), the rows' cache entry, lengths
-        (B,)): the prompt KV of the S written positions (transformer), or
-        the per-layer {conv, ssm} states for the dense cache (mamba2)."""
+        (B,)): the prompt KV of the S written positions (transformer, moe),
+        the per-layer {conv, ssm} states for the dense cache (mamba2), or
+        both in the hybrid's cache tree."""
         return self.mod.prefill(params, batch, self.cfg, rcfg)
 
-    # -- dense cache contract (both families) ---------------------------------
+    # -- dense cache contract (every family) ----------------------------------
 
     def cache_spec(self, rcfg: RuntimeConfig, batch: int, max_seq: int):
         return self.mod.cache_spec(self.cfg, rcfg, batch, max_seq)
@@ -48,10 +52,10 @@ class Model:
         return self.mod.decode_step(params, cache, tokens, lengths, self.cfg,
                                     rcfg, positions=positions)
 
-    # -- paged KV contract (transformer) --------------------------------------
+    # -- paged KV contract (transformer, moe) ---------------------------------
 
     def supports_paged(self) -> bool:
-        return (self.cfg.family == "transformer"
+        return (self.cfg.family in ("transformer", "moe")
                 and (self.cfg.local_global_pattern or 1) == 1
                 and not self.cfg.use_mrope)
 

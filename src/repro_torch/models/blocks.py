@@ -1,4 +1,5 @@
-"""Transformer building blocks of the pattern-1 transformer family.
+"""Transformer building blocks of the pattern-1 transformer family, the MoE
+family and the hybrid's shared attention block.
 
 All parameters are ParamDef-spec'd (see sharding/param.py); attention weights
 are stored with flattened head dims, (d, N*H), as in the JAX package, so a
@@ -63,9 +64,19 @@ def block_norms_spec(cfg: ModelConfig, lead=(), lead_log=()):
 # ---------------------------------------------------------------------------
 
 
+def act(x, kind: str):
+    """The gate activation of the JAX package's `blocks.act`: SiLU (SwiGLU)
+    or GELU with the tanh approximation (GeGLU), each in one rounding (the
+    reference rounds `jax.nn.silu` op by op, one bf16 step away in ~40% of
+    outputs; the tests' tolerances cover it, and one kernel a call keeps
+    the host's launch count)."""
+    return F.silu(x) if kind == "silu" else F.gelu(x, approximate="tanh")
+
+
 def mlp_apply(p, x, cfg: ModelConfig):
-    """SwiGLU."""
-    h = F.silu(dense(x, p["wg"])) * dense(x, p["wu"])
+    """Gated MLP over x (..., d): the dense layers' and the MoE shared
+    expert's (whose width `mlp_spec(..., d_ff=)` set)."""
+    h = act(dense(x, p["wg"]), cfg.act_fn) * dense(x, p["wu"])
     return dense(h, p["wo"])
 
 

@@ -1,5 +1,6 @@
 """Decoder-only transformer LM: the paged serving contract of
-`repro.models.transformer` for the pattern-1, non-M-RoPE transformer family.
+`repro.models.transformer` for the pattern-1, non-M-RoPE transformer family
+and its MoE variant (family "moe": every layer's MLP is `moe.moe_apply`).
 
 Layers are stacked on a leading dim (the JAX package's scan layout, so weight
 trees cross packages leaf for leaf) and run by a Python loop over that dim.
@@ -30,6 +31,7 @@ from repro_torch.common.tree import tree_map
 from repro_torch.config import ModelConfig, RuntimeConfig
 from repro_torch.models import blocks as B_
 from repro_torch.models import layers as L
+from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.quant import dense
 from repro_torch.sharding.param import ParamDef
 
@@ -45,8 +47,11 @@ def param_spec(cfg: ModelConfig):
     layer = {
         "attn": B_.attn_spec(cfg, (Lc,), ("layers",)),
         "norms": B_.block_norms_spec(cfg, (Lc,), ("layers",)),
-        "mlp": B_.mlp_spec(cfg, (Lc,), ("layers",)),
     }
+    if cfg.family == "moe":
+        layer["moe"] = moe_spec(cfg, (Lc,), ("layers",))
+    else:
+        layer["mlp"] = B_.mlp_spec(cfg, (Lc,), ("layers",))
     spec = {
         "embed": ParamDef((V, d), ("vocab", "embed"), init="embed"),
         "layers": layer,
@@ -58,11 +63,12 @@ def param_spec(cfg: ModelConfig):
 
 
 def check_supported(cfg: ModelConfig):
-    if cfg.family != "transformer" or (cfg.local_global_pattern or 1) != 1 \
-            or cfg.use_mrope:
+    if cfg.family not in ("transformer", "moe") \
+            or (cfg.local_global_pattern or 1) != 1 or cfg.use_mrope:
         raise NotImplementedError(
             f"{cfg.name}: the port serves pattern-1, non-M-RoPE transformer "
-            "models so far; other families are ROADMAP Queue 1 item 7")
+            "and MoE models so far; other families are ROADMAP Queue 1 "
+            "item 7")
 
 
 def layer_params(params, i: int):
@@ -94,8 +100,12 @@ def unembed(params, h, cfg: ModelConfig):
     return dense(h, params["lm_head"]).to(torch.float32)
 
 
-def _mlp_residual(p_i, x, cfg: ModelConfig):
+def mlp_residual(p_i, x, cfg: ModelConfig):
+    """x + the layer's MLP (dense, or the MoE block over every row of the
+    call) of its pre-MLP norm."""
     h = L.rms_norm(x, p_i["norms"]["pre_mlp"], cfg.norm_eps)
+    if cfg.family == "moe":
+        return x + moe_apply(p_i["moe"], h, cfg)
     return x + B_.mlp_apply(p_i["mlp"], h, cfg)
 
 
@@ -208,7 +218,7 @@ def forward(params, batch, cfg: ModelConfig, rcfg: RuntimeConfig, *,
         p_i = layer_params(params, i)
         h = L.rms_norm(x, p_i["norms"]["pre_attn"], cfg.norm_eps)
         a, (k, v) = B_.attn_apply(p_i["attn"], h, cfg, cos=cos, sin=sin)
-        x = _mlp_residual(p_i, x + a, cfg)
+        x = mlp_residual(p_i, x + a, cfg)
         if collect_kv:
             ks.append(k)
             vs.append(v)
@@ -255,7 +265,7 @@ def _prefill_window(params, batch, prefix_k, prefix_v, prefix_lens,
         o = L.prefix_attention(q, prefix_k[i], prefix_v[i], k, v, prefix_lens,
                                q_pos)
         a = dense(o.reshape(Bb, S, -1), p_i["attn"]["wo"])
-        x = _mlp_residual(p_i, x + a, cfg)
+        x = mlp_residual(p_i, x + a, cfg)
         ks.append(k)
         vs.append(v)
     kv = (torch.stack(ks), torch.stack(vs))
@@ -316,7 +326,7 @@ def decode_step_paged(params, pool, tokens, lengths, block_tables,
         a, _ = B_.attn_decode_paged_apply(
             p_i["attn"], h, cfg, cos=cos, sin=sin, pool_i=pool_i,
             lengths=lengths, block_tables=block_tables, seq_cap=seq_cap)
-        x = _mlp_residual(p_i, x + a, cfg)
+        x = mlp_residual(p_i, x + a, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg)[:, 0], pool
 
@@ -337,6 +347,6 @@ def decode_step(params, cache, tokens, lengths, cfg: ModelConfig,
         cache_i = {key: leaf[i] for key, leaf in cache.items()}
         a = B_.attn_decode_apply(p_i["attn"], h, cfg, cos=cos, sin=sin,
                                  cache_i=cache_i, lengths=lengths)
-        x = _mlp_residual(p_i, x + a, cfg)
+        x = mlp_residual(p_i, x + a, cfg)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return unembed(params, x, cfg)[:, 0], cache

@@ -101,18 +101,42 @@ def dequantize(t: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
     raise ValueError(t.fmt)
 
 
+def dequantize_experts(t: QTensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """A stacked (E, d_in', d_out) QTensor dequantized into one (E, d_in,
+    d_out) buffer of `dtype`, with `dequantize`'s values: each f32 value
+    is rounded once into the buffer as it is made. Q8 is one pass over the
+    whole stack (int8 times f32 scale, computed in f32); Q4 goes expert by
+    expert, with one expert's f32 products alive at a time (a whole
+    phi3.5-moe layer's f32 temporary would be 1.56 GiB a matrix)."""
+    out = torch.empty(t.shape, dtype=dtype, device=t.q.device)
+    if t.fmt == "q8":
+        return torch.mul(t.q, t.scale, out=out)
+    groups = t.scale.shape[-2]
+    for e in range(t.shape[0]):
+        q = unpack_q4(t.q[e]).view(groups, t.group, -1)
+        torch.add(q * t.scale[e].unsqueeze(-2), t.zero[e].unsqueeze(-2),
+                  out=out[e].view(groups, t.group, -1))
+    return out
+
+
 def dense(x: torch.Tensor, w) -> torch.Tensor:
-    """x: (..., d_in) @ w: (d_in, d_out) -> (..., d_out) in x's dtype."""
+    """x: (..., d_in) @ w: (d_in, d_out) -> (..., d_out) in x's dtype, or
+    batched experts x (E, C, d_in) @ w (E, d_in, d_out) -> (E, C, d_out).
+    A 2-D QTensor goes to the fused dequant-matmul; batched experts are
+    dequantized to x's dtype and multiplied by `torch.bmm`, as the JAX
+    package dequantizes them and runs a batched `dot_general` outside any
+    Pallas kernel."""
     if isinstance(w, QTensor):
-        if w.q.ndim != 2:
-            raise NotImplementedError(
-                "batched-expert QTensors belong to the MoE family, which the "
-                "port has not reached yet (ROADMAP Queue 1 item 7)")
-        from repro_torch.kernels.quant_matmul import ops as qm_ops
-        return qm_ops.quant_matmul(x, w)
-    if w.ndim != 2:
-        raise NotImplementedError("dense: 2-D weights only")
-    return torch.matmul(x, w.to(x.dtype))
+        if w.q.ndim == 2:
+            from repro_torch.kernels.quant_matmul import ops as qm_ops
+            return qm_ops.quant_matmul(x, w)
+        w = dequantize_experts(w, x.dtype)
+    if w.ndim == 2:
+        return torch.matmul(x, w.to(x.dtype))
+    if w.ndim != 3 or x.ndim != 3:
+        raise ValueError(f"dense: x {tuple(x.shape)} @ w {tuple(w.shape)}: "
+                         "2-D weights or batched experts only")
+    return torch.bmm(x, w.to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

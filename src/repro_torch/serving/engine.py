@@ -23,17 +23,17 @@ the q8/q4 kernels. A CPU engine runs the kernels' plain versions, and each
 of its paged decode or speculative steps counts into `kernel_fallbacks`, as
 in the JAX package. The pool is updated in place.
 
-Chunked prefill (`prefill_chunk=N`, transformer family): the queue head's
-prefill runs in N-token windows, one a step, and `step()` alternates pending
-prefill work with a decode step for the residents. On the paged layout N is
-rounded up to whole blocks and a partial prefill is parked in the block pool
-as prefix-cache entries that the next window extends; cancel, expiry, a hot
-swap or pool pressure release it. On the dense layout N stays as given and
-the partial prefill is parked in a slot stripe the request reserves
-(`Request.chunk_slot`) until its final window admits it there; cancel,
-expiry and a hot swap release the stripe. Non-final windows are logged as
-"prefill_chunk" rows that emit nothing; the final window admits the request
-as a "prefill" row.
+Chunked prefill (`prefill_chunk=N`, transformer and MoE families): the
+queue head's prefill runs in N-token windows, one a step, and `step()`
+alternates pending prefill work with a decode step for the residents. On
+the paged layout N is rounded up to whole blocks and a partial prefill is
+parked in the block pool as prefix-cache entries that the next window
+extends; cancel, expiry, a hot swap or pool pressure release it. On the
+dense layout N stays as given and the partial prefill is parked in a slot
+stripe the request reserves (`Request.chunk_slot`) until its final window
+admits it there; cancel, expiry and a hot swap release the stripe.
+Non-final windows are logged as "prefill_chunk" rows that emit nothing; the
+final window admits the request as a "prefill" row.
 
 Speculative decoding (`spec_decode`, paged layout): once the executor
 installs the draft variant's tree (`set_draft_params`), a decode step drafts
@@ -48,15 +48,16 @@ pressure.
 The dense layout (`kv_layout="dense"`, or "auto" for a family without the
 paged contract) keeps one cache tree of `max_batch` slots from the model's
 `cache_spec`: per-layer {conv, ssm} states for mamba2, (max_seq, K, H) KV
-stripes for the transformer. An admission batch runs one padded prefill
-(mamba2: the ssd kernel on the card; transformer: the flash kernel) and
-copies each row's cache leaves into its slot, the transformer's written
-positions at the head of the stripe and zeros after them; a decode step runs
-the model's `decode_step` over every slot (transformer: plain decode
-attention over the stripe, as in the JAX package) and updates the cache in
-place. There is no prefix cache, copy-on-write, preemption or speculative
-decoding on this layout, and no chunked prefill for mamba2 (the JAX package
-refuses those two with ValueError). The data-parallel mesh is not ported
+stripes for the transformer and the MoE, both in the hybrid's tree. An
+admission batch runs one padded prefill (the ssd kernel for the mamba
+blocks and the flash kernel for attention, on the card) and copies each
+row's cache leaves into its slot, written KV positions at the head of the
+stripe and zeros after them; a decode step runs the model's `decode_step`
+over every slot (plain decode attention over the stripe, as in the JAX
+package) and updates the cache in place. There is no prefix cache,
+copy-on-write, preemption or speculative decoding on this layout, and no
+chunked prefill for mamba2 and the hybrid (the JAX package refuses those
+two with ValueError). The data-parallel mesh is not ported
 yet and is refused at construction (ROADMAP Queue 1 item 9).
 """
 from __future__ import annotations
@@ -69,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
+from repro_torch.common.tree import tree_map
 from repro_torch.config import ModelConfig, RuntimeConfig
 from repro_torch.kernels.paged_attention.ops import (
     check_shapes as check_paged_shapes, paged_attention_uses_fallback)
@@ -599,8 +601,9 @@ class ServingEngine:
             self.params, self._batch(toks), self.rcfg)
         lengths_n = lengths_n.cpu().numpy()
         for i, (req, slot) in enumerate(zip(reqs, free)):
-            for key, leaf in self.cache.items():
-                self._write_slot(leaf[:, slot], entry[key][:, i])
+            tree_map(lambda leaf, src: self._write_slot(leaf[:, slot],
+                                                        src[:, i]),
+                     self.cache, entry)
             self.lengths[slot] = int(lengths_n[i])
             self._place(req, slot, toks[i])
             tok = self._sample(logits[i:i + 1], req)
@@ -611,9 +614,9 @@ class ServingEngine:
     @staticmethod
     def _write_slot(dst, src):
         """Copy one row's cache leaf into its slot: whole for a state
-        (mamba2), or the S prefilled positions at the head of a (max_seq,
-        ...) KV stripe with zeros after them, as the JAX package's padded
-        prefill cache leaves it."""
+        (mamba2 and the hybrid's mamba blocks), or the S prefilled positions
+        at the head of a (max_seq, ...) KV stripe with zeros after them, as
+        the JAX package's padded prefill cache leaves it."""
         if src.shape == dst.shape:
             dst.copy_(src)
             return

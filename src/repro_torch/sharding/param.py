@@ -53,10 +53,15 @@ PIECE_ELEMS = 1 << 27
 def leaf_pieces(d: ParamDef):
     """The pieces a leaf is drawn in, as indices into it: one layer slice
     `(i,)` for each layer of a stacked leaf (leading logical axis
-    "layers"), else column blocks `(..., slice(c0, c1))` of at most
-    PIECE_ELEMS elements. Quantization reduces over d_in within one layer,
-    column by column, so a piece quantizes to the same index of the
-    quantized leaf's every field."""
+    "layers"), one (layer, expert) slice `(i, e)` for each expert of a
+    stacked expert leaf (logical axes "layers", "experts": a layer of
+    phi3.5-moe's experts holds 419 M elements, an expert 26 M), else column
+    blocks `(..., slice(c0, c1))` of at most PIECE_ELEMS elements.
+    Quantization reduces over d_in within one layer and expert, column by
+    column, so a piece quantizes to the same index of the quantized leaf's
+    every field."""
+    if d.logical[:2] == ("layers", "experts") and len(d.shape) >= 3:
+        return [(i, e) for i in range(d.shape[0]) for e in range(d.shape[1])]
     if d.logical and d.logical[0] == "layers" and len(d.shape) >= 2:
         return [(i,) for i in range(d.shape[0])]
     n = math.prod(d.shape)

@@ -66,7 +66,7 @@ def test_every_module_imports_without_jax():
 def test_paper_model_configs_resolve_without_jax():
     """The paper's three models resolve from the port's registry with jax
     and the JAX package unimportable, and the registry lists them beside
-    mamba2-370m and qwen2.5-32b."""
+    mamba2-370m, qwen2.5-32b and the hybrid and MoE configs."""
     script = ("import sys\n"
               "sys.modules['jax'] = None\n"
               "sys.modules['repro'] = None\n"
@@ -74,8 +74,9 @@ def test_paper_model_configs_resolve_without_jax():
               "names = ('hermes2-pro-8b', 'llama3.1-8b', "
               "'carboncall-qwen2-7b')\n"
               "assert [get_arch(n).name for n in names] == list(names)\n"
-              "assert set(names) | {'mamba2-370m', 'qwen2.5-32b'} == "
-              "set(list_archs())\n"
+              "assert set(names) | {'mamba2-370m', 'qwen2.5-32b', "
+              "'zamba2-7b', 'phi3.5-moe-42b-a6.6b', "
+              "'llama4-scout-17b-a16e'} == set(list_archs())\n"
               "print('ok')\n")
     proc = subprocess.run([sys.executable, "-c", script], env=_env(),
                           cwd=REPO, capture_output=True, text=True,

@@ -32,7 +32,7 @@ from repro_torch.serving import engine as engine
 from repro_torch.serving import invariants as inv
 from repro_torch.serving import protocol as proto
 from repro_torch.serving import scheduler as sched
-from repro_torch.config import ModelConfig, RuntimeConfig
+from repro_torch.config import ModelConfig, MoEConfig, RuntimeConfig
 from repro_torch.launch import workers
 from repro_torch.models import get_model
 from repro_torch.quant.qtensor import init_quantized
@@ -310,18 +310,40 @@ def test_port_worker_stats_schema_over_the_wire(port_worker):
                       label="bad-hw"), "unknown hardware 'pdp11'"),
     (proto.WorkerSpec(config=proto.EngineConfig(), hw="tpu_v5e",
                       label="tpu"), "Queue 1 item 9"),
-    (proto.WorkerSpec(config=proto.EngineConfig(), label="moe",
+    (proto.WorkerSpec(config=proto.EngineConfig(), label="whisper",
                       model_cfg={**dataclasses.asdict(W_CFG),
-                                 "moe": {"num_experts": 4}}),
-     "fields the port does not serve: \\['moe'\\]"),
+                                 "encoder_layers": 2}),
+     "fields the port does not serve: \\['encoder_layers'\\]"),
 ], ids=["unknown-hw", "tpu", "unported-field"])
 def test_port_worker_build_failure_ships_error(spec, match):
     """A worker that cannot build ships the error in its ready reply, and
     `launch_workers` raises naming it: an unknown board, the TPU (not
-    ported, ROADMAP item 9), a model config field the port lacks."""
+    ported, ROADMAP item 9), a model config field the port lacks (whisper's
+    encoder, ROADMAP Queue 1 item 7c)."""
     with pytest.raises(proto.ProtocolError, match="failed to build") as ei:
         workers.launch_workers([spec], timeout=120.0, device="cpu")
     assert re.search(match, str(ei.value)), str(ei.value)
+
+
+def test_port_worker_builds_a_moe_model_config():
+    """A raw worker's `model_cfg` carrying a `moe` dict (its wire form,
+    `dataclasses.asdict`) builds the MoE model: the dict becomes a
+    `MoEConfig`, the tree holds stacked experts, and requests settle."""
+    cfg = dataclasses.replace(W_CFG, family="moe", moe=MoEConfig(
+        num_experts=4, experts_per_token=2, d_ff=96, capacity_factor=1.25))
+    spec = dataclasses.replace(W_SPEC, model_cfg=dataclasses.asdict(cfg),
+                               label="test-moe")
+    assert isinstance(spec.model_cfg["moe"], dict)
+    actor = workers.EngineActor(spec, device="cpu")
+    assert actor.engine.cfg == cfg and actor.engine.kv_layout == "paged"
+    assert actor.engine.params["layers"]["moe"]["wg"].shape == (2, 4, 64, 96)
+    rids = [actor.handle("submit", {"request": {
+        "v": 1, "prompt": p, "max_new_tokens": 4, "eos_id": -1}})["rid"]
+        for p in W_PROMPTS[:3]]
+    out = actor.handle("settle", {"rids": rids})
+    assert [r["status"] for r in out["results"]] == ["done"] * 3
+    assert all(len(r["output"]) == 4 for r in out["results"])
+    assert actor.handle("check", {"flush": False})["violations"] == []
 
 
 def test_port_worker_actor_in_process_round_trip():
